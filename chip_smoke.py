@@ -1,8 +1,9 @@
 """Smoke run of rpagp_torch on one CUDA card: builds the kernels, holds
-each against its plain PyTorch version at the main path's shapes, holds
-the CUDA grid MLL against the CPU one at full width, and drives the
-flagship main path (prepare -> training steps -> posterior) through
-rpagp_torch.runner.run_split at full size.
+each against its plain PyTorch version at its path's shapes, holds the
+CUDA MLL of each path against the CPU one at full width, and drives each
+ported path through rpagp_torch.runner.run_split at full size:
+- the flagship exact grid-solver path (K1, K2, K3), phases 2-4;
+- the BBMM dense path on elevators (K4, K5), phases 5-7.
 
     python3 chip_smoke.py
 
@@ -24,7 +25,26 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SPEC = os.path.join(ROOT, "specs", "rp_ski_houseelectric_j20.json")
+SPEC_BBMM = os.path.join(ROOT, "specs", "rp_bbmm_elevators.json")
 N_FLAGSHIP_TRAIN = 1_844_352  # synthetic HouseElectric split 0 (k=10)
+N_ELEVATORS_TRAIN, N_ELEVATORS_TEST = 14_939, 1_660  # elevators split 0
+
+# the card's published peaks (H100 SXM at 700 W): HBM bytes/s, f32 FLOP/s outside the tensor cores, and the SFU's
+# exponentials/s (16 per clock per SM, 132 SMs, 1.98 GHz boost clock)
+HBM_BYTES_S = 3.35e12
+F32_FLOPS_S = 67e12
+EXP_S = 16 * 132 * 1.98e9
+
+
+def bound(nbytes, flops=0.0, exps=0.0):
+    """(bound_ms, bound_by, term): the least time the card could take for
+    this work, the larger of the bytes over the memory rate and the
+    operations over their peak rate."""
+    terms = {"bytes": nbytes / HBM_BYTES_S, "f32": flops / F32_FLOPS_S,
+             "exp": exps / EXP_S}
+    term = max(terms, key=terms.get)
+    return (1e3 * terms[term], "bytes" if term == "bytes" else "operations",
+            term)
 
 
 def say(phase, msg):
@@ -141,8 +161,13 @@ def phase2_kernels(results):
     check(res <= 1e-5, f"K1 b=512 residual {res:.2e}")
     ms = cuda_ms(lambda: cuda_chol.chol_linv_cuda(A, "chol_linv"))
     pms = cuda_ms(lambda: cuda_chol.chol_linv_plain(A))
+    # Cholesky + triangular inverse: 2 b^3 / 3 flops; A in, L and Linv out
+    bms, bby, _ = bound(4 * 3 * 512**2, flops=2 * 512**3 / 3)
+    # the plain version is cuSOLVER (cholesky_ex + solve_triangular): it is
+    # also the library call
     results["chol_linv"] = dict(max_abs_err=max(max_abs(L, Lp), max_abs(Li, Lip)),
-                                ms=ms, plain_ms=pms)
+                                ms=ms, plain_ms=pms, bound_ms=bms,
+                                bound_by=bby, library_ms=pms)
     say(2, f"K1 (1,512,512) SPD: rel L {eL:.2e} Linv {eLi:.2e} "
            f"|LL^T-A|/|A| {res:.2e}; {ms:.3f} ms vs plain {pms:.3f} ms")
 
@@ -206,7 +231,9 @@ def phase2_kernels(results):
           f"K1 Toeplitz Linv residual {inv_k:.2e}")
     ms = cuda_ms(lambda: cuda_chol.chol_linv_cuda(Tj, "chol_linv_batched"))
     pms = cuda_ms(lambda: cuda_chol.chol_linv_plain(Tj))
-    results["chol_linv_batched"].update(ms=ms, plain_ms=pms)
+    bms, bby, _ = bound(4 * 3 * 20 * 256**2, flops=20 * 2 * 256**3 / 3)
+    results["chol_linv_batched"].update(ms=ms, plain_ms=pms, bound_ms=bms,
+                                        bound_by=bby, library_ms=pms)
     say(2, f"K1 Toeplitz x{mult:g}: |LL^T-A|/|A| kernel {res_k:.2e} plain "
            f"{res_p:.2e}; rel L vs plain {eL:.2e} (max kappa {kappa:.2e}, "
            f"10 kappa eps {10 * kappa * 2.0**-24:.2e}); |L Linv - I|/"
@@ -282,10 +309,16 @@ def phase2_kernels(results):
                f"{pms_a:.3f} ms; adjoint {adj:.1e}; padding exact; "
                f"K2 repeatable")
         if t == 1:  # the main path's width
-            results["interp_transpose"] = dict(max_abs_err=max_abs(U, Up),
-                                               ms=ms_t, plain_ms=pms_t)
-            results["interp_apply_sum"] = dict(max_abs_err=max_abs(O, Op),
-                                               ms=ms_a, plain_ms=pms_a)
+            # tfrac, V in and U out (K2), or tfrac, G in and out (K3); 4
+            # taps per point and component, one FMA per column each
+            nbytes = 4 * (J * n + n * t + J * t * m)
+            bms, bby, _ = bound(nbytes, flops=2 * 4 * J * n * t)
+            results["interp_transpose"] = dict(
+                max_abs_err=max_abs(U, Up), ms=ms_t, plain_ms=pms_t,
+                bound_ms=bms, bound_by=bby, library_ms=None)
+            results["interp_apply_sum"] = dict(
+                max_abs_err=max_abs(O, Op), ms=ms_a, plain_ms=pms_a,
+                bound_ms=bms, bound_by=bby, library_ms=None)
 
 
 def _grad_relerr(ga, gb):
@@ -452,8 +485,287 @@ def phase4_main_path(results):
            f"{float(loss.detach()):.5f}")
 
 
+def _gram_case(n, m, t, J, gen, dev):
+    """Projected coordinates at the scale of z-scored data through a
+    gaussian projection, weights softplus(0) / J, as at initialisation."""
+    import torch
+
+    z1 = torch.randn(n, J, generator=gen).to(dev)
+    z2 = torch.randn(m, J, generator=gen).to(dev)
+    w = torch.full((J,), math.log(2.0) / J, device=dev)
+    V = torch.randn(m, t, generator=gen).to(dev)
+    G = torch.randn(n, t, generator=gen).to(dev)
+    return z1, z2, w, V, G
+
+
+def _gram_bound(n, m, t, J, backward=False):
+    """K4: n m J exps, 2 n m (J + t) f32 ops (the TPU kernel's own cost
+    estimate), z1, z2, w, V in and out once; K5: the same exps,
+    2 n m (2 J + t) ops, G in and dz, dw out besides."""
+    if backward:
+        return bound(4 * (2 * n * J + m * J + 2 * J + m * t + n * t),
+                     flops=2 * n * m * (2 * J + t), exps=n * m * J)
+    return bound(4 * (n * J + m * J + J + m * t + n * t),
+                 flops=2 * n * m * (J + t), exps=n * m * J)
+
+
+def phase5_gram_kernels(results):
+    """K4 / K5 against their plain versions at the BBMM path's shapes."""
+    import torch
+
+    from rpagp_torch.ops import cuda_gram as cg
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(5)
+    n, nt, J = N_ELEVATORS_TRAIN, N_ELEVATORS_TEST, 10
+    cases = [("train", n, n, 11, "rbf"), ("posterior CG/Lanczos", n, n, 1, "rbf"),
+             ("cross K*Q", nt, n, 256, "rbf"), ("small", 2000, 1500, 11,
+                                                 "matern32")]
+    for label, rows, cols, t, base in cases:
+        z1, z2, w, V, G = _gram_case(rows, cols, t, J, gen, dev)
+        out = cg.gram_mvm_cuda(z1, z2, w, V, base)
+        outp = cg.gram_mvm_plain(z1, z2, w, V, base)
+        torch.cuda.synchronize()
+        e = rel(out, outp)
+        check(e <= 1e-5, f"K4 {label}: rel {e:.2e}")
+        check(torch.equal(out, cg.gram_mvm_cuda(z1, z2, w, V, base)),
+              f"K4 {label}: not bit-identical on a repeat")
+        ms = cuda_ms(lambda: cg.gram_mvm_cuda(z1, z2, w, V, base))
+        pms = cuda_ms(lambda: cg.gram_mvm_plain(z1, z2, w, V, base), iters=2)
+        bms, bby, term = _gram_bound(rows, cols, t, J)
+        line = (f"K4 {label} ({rows}, {cols}, J={J}, t={t}, {base}): rel "
+                f"{e:.2e}, repeats bit for bit; {ms:.3f} ms vs plain "
+                f"{pms:.3f} ms, bound {bms:.3f} ms ({term})")
+        if label == "train":
+            results["gram_mvm"] = dict(max_abs_err=max_abs(out, outp), ms=ms,
+                                       plain_ms=pms, bound_ms=bms,
+                                       bound_by=bby, library_ms=None)
+        if label in ("train", "small"):
+            dz, dw = cg.gram_mvm_bwd_cuda(z1, z2, w, V, G, base)
+            dzp, dwp = cg.gram_mvm_bwd_plain(z1, z2, w, V, G, base)
+            torch.cuda.synchronize()
+            ez, ew = rel(dz, dzp), rel(dw, dwp)
+            check(ez <= 1e-4 and ew <= 1e-4,
+                  f"K5 {label}: rel dz {ez:.2e} dw {ew:.2e}")
+            dz2, dw2 = cg.gram_mvm_bwd_cuda(z1, z2, w, V, G, base)
+            check(torch.equal(dz, dz2) and torch.equal(dw, dw2),
+                  f"K5 {label}: not bit-identical on a repeat")
+            line += f"; K5 rel dz {ez:.2e} dw {ew:.2e}, repeats bit for bit"
+        if label == "train":
+            ms5 = cuda_ms(lambda: cg.gram_mvm_bwd_cuda(z1, z2, w, V, G, base))
+            pms5 = cuda_ms(lambda: cg.gram_mvm_bwd_plain(z1, z2, w, V, G, base),
+                           iters=2)
+            bms5, bby5, term5 = _gram_bound(rows, cols, t, J, backward=True)
+            results["gram_mvm_bwd"] = dict(
+                max_abs_err=max(max_abs(dz, dzp), max_abs(dw, dwp)), ms=ms5,
+                plain_ms=pms5, bound_ms=bms5, bound_by=bby5, library_ms=None)
+            line += (f"; {ms5:.3f} ms vs plain {pms5:.3f} ms, bound "
+                     f"{bms5:.3f} ms ({term5})")
+            # gradients through the autograd.Function against the plain VJP
+            ts = [a.clone().requires_grad_(True) for a in (z1, z2, w, V)]
+            cg.projected_gram_mvm(*ts, base).backward(G)
+            plain = (cg.gram_mvm_bwd_plain(z1, z2, w, V, G, base)[0],
+                     cg.gram_mvm_bwd_plain(z2, z1, w, G, V, base)[0],
+                     dwp, cg.gram_mvm_plain(z2, z1, w, G, base))
+            errs = [rel(a.grad, b) for a, b in zip(ts, plain)]
+            check(max(errs) <= 1e-4, f"K4/K5 gradients rel {errs}")
+            line += ("; autograd.Function grads dz1/dz2/dw/dV rel "
+                     + "/".join(f"{x:.2e}" for x in errs))
+        say(5, line)
+
+
+def phase6_bbmm_mll():
+    """iterative_mll value and gradient at J=10, D=18, n=4096 elevators
+    rows, CUDA (K4/K5) against CPU (the blocked plain MVM), the same
+    params, projection and probe normals on both devices."""
+    import torch
+
+    from rpagp_torch.models import exact_gp
+    from rpagp_torch.ops import iterative
+    from rpagp_torch.ops.exact import LOG_2PI
+    from rpagp_torch.utils import datasets
+    from rpagp_torch.utils.config import load_spec
+
+    spec = load_spec(SPEC_BBMM).model
+    n = 4096
+    split = next(datasets.kfold_splits(datasets.load_dataset("elevators"),
+                                       k=10, seed=0, equal_train=True))
+    x = torch.as_tensor(split.train_x[:n])
+    y = torch.as_tensor(split.train_y[:n])
+    gen = torch.Generator().manual_seed(6)
+    params0, buf0 = exact_gp.init_model(spec, x.shape[1], generator=gen)
+    eps_small = torch.randn(spec.precond_rank, spec.num_probes, generator=gen)
+    eps_big = torch.randn(n, spec.num_probes, generator=gen)
+
+    def to(tree, d):
+        return {k: to(v, d) if isinstance(v, dict) else v.to(d, copy=True)
+                for k, v in tree.items()}
+
+    out = {}
+    for d in ("cuda", "cpu"):
+        p = to(params0, d)
+        leaves = [p["raw_noise"], p["mean_const"],
+                  *p["kernel"].values()]
+        for t in leaves:
+            t.requires_grad_(True)
+        stats = {}
+        t0 = time.perf_counter()
+        iq, ld = iterative.inv_quad_logdet_eps(
+            spec, p, to(buf0, d), x.to(d), y.to(d), eps_small.to(d),
+            eps_big.to(d), stats=stats)
+        v = -0.5 * (iq + ld + n * LOG_2PI)
+        v.backward()
+        out[d] = (float(v.detach()), [t.grad for t in leaves],
+                  (stats["cg"].alphas == 0).cpu(), time.perf_counter() - t0)
+    (vg, gg, fg, sg), (vc, gc, fc, sc) = out["cuda"], out["cpu"]
+    erel = abs(vg - vc) / abs(vc)
+    grel = _grad_relerr(gg, gc)
+    say(6, f"iterative_mll J={spec.kernel.J} D={x.shape[1]} n={n}: value cuda "
+           f"{vg:.8g} cpu {vc:.8g} rel {erel:.2e}; grad relerr {grel:.2e}; "
+           f"CG masks froze the same columns at the same iterations "
+           f"{torch.equal(fg, fc)} (frozen iterations per column cuda "
+           f"{fg.sum(0).tolist()} cpu {fc.sum(0).tolist()}); value+grad "
+           f"{sg:.2f} s cuda, {sc:.2f} s cpu")
+    check(erel <= 1e-4, f"iterative_mll value rel {erel:.2e} > 1e-4")
+    check(grel <= 1e-3, f"iterative_mll grad relerr {grel:.2e} > 1e-3")
+
+
+def _count_syncs(fn):
+    """Run fn() with CUDA sync debugging on: the device->host
+    synchronizations it made (each warns once), as {site: count}, a site
+    being the innermost lines of this repository and of torch that led
+    to it. The sync of switching the mode back is not fn's and is left
+    out."""
+    import collections
+    import traceback
+    import warnings
+
+    import torch
+
+    sites = collections.Counter()
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        frames = [f for f in traceback.extract_stack()[:-1]
+                  if "warnings" not in f.filename]
+        if any(f.name == "set_sync_debug_mode" for f in frames):
+            return  # restoring the mode at the end syncs once itself
+        ours = [f for f in frames if f.filename.startswith(ROOT)]
+        shown = ours[-1:] + [f for f in frames
+                             if f"{os.sep}torch{os.sep}" in f.filename][-1:]
+        sites[" < ".join(f"{os.path.basename(f.filename)}:{f.lineno} "
+                         f"{f.name}" for f in shown[::-1])] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return dict(sites)
+
+
+def phase7_bbmm_main_path(results):
+    """The BBMM path through run_split on rp_bbmm_elevators, elevators split
+    0 (n_train 14,939, n_test 1,660): max_iters cut from 300 to 50 to fit
+    the smoke run; then timed training steps at the same size."""
+    import torch
+
+    from rpagp_torch import runner
+    from rpagp_torch.mll import mll
+    from rpagp_torch.models import exact_gp
+    from rpagp_torch.ops import cuda_gram, iterative
+    from rpagp_torch.utils import datasets
+    from rpagp_torch.utils.config import load_spec
+
+    dev = torch.device("cuda")
+    exp = load_spec(SPEC_BBMM)
+    exp = dataclasses.replace(exp, train=dataclasses.replace(exp.train,
+                                                             max_iters=50))
+    split = next(datasets.kfold_splits(datasets.load_dataset("elevators"),
+                                       k=10, seed=0, equal_train=True))
+    check(split.train_x.shape[0] == N_ELEVATORS_TRAIN
+          and split.test_x.shape[0] == N_ELEVATORS_TEST,
+          f"unexpected elevators split {split.train_x.shape}")
+    for k in cuda_gram.launches:
+        cuda_gram.launches[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    timings = {}
+    m = runner.run_split(exp, split, seed=0, device=dev, timings=timings)
+    torch.cuda.synchronize()
+    launches = dict(cuda_gram.launches)
+    peak = torch.cuda.max_memory_allocated()
+    say(7, f"run_split rp_bbmm_elevators (max_iters 50 of 300): prepare "
+           f"{timings['prepare_s']:.2f} s, train {timings['train_s']:.2f} s "
+           f"({m['iterations']} steps), posterior {timings['posterior_s']:.2f}"
+           f" s; rmse {m['rmse']:.4f} nll {m['nll']:.4f} mll {m['mll']:.5f}; "
+           f"peak memory {peak / 2**30:.2f} GiB; launches {launches}")
+    for k, v in launches.items():
+        check(v > 0, f"kernel {k} was not launched on the BBMM path")
+        results[k]["launches"] = v
+    for k in ("rmse", "nll", "mll"):
+        check(math.isfinite(m[k]), f"{k} not finite")
+    check(m["rmse"] < 0.9, f"rmse {m['rmse']:.4f} >= 0.9: learned nothing")
+
+    # training steps at the same size: syncs counted, then 5 timed
+    x = torch.as_tensor(split.train_x, device=dev)
+    y = torch.as_tensor(split.train_y, device=dev)
+    n = x.shape[0]
+    params, buffers = exact_gp.init_model(exp.model, x.shape[1],
+                                          generator=torch.Generator()
+                                          .manual_seed(0), device=dev)
+    leaves = [params["raw_noise"], params["mean_const"],
+              *params["kernel"].values()]
+    for t in leaves:
+        t.requires_grad_(True)
+    opt = torch.optim.Adam(leaves, lr=exp.train.lr)
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = -mll(exp.model, params, buffers, x, y, gen) / n
+        loss.backward()
+        opt.step()
+        return loss
+
+    step()  # warm-up
+    syncs = _count_syncs(step)
+    for k in cuda_gram.launches:
+        cuda_gram.launches[k] = 0
+    events = []
+    for _ in range(5):
+        e0, e1, e2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        e0.record()
+        opt.zero_grad(set_to_none=True)
+        loss = -mll(exp.model, params, buffers, x, y, gen) / n
+        e1.record()
+        loss.backward()
+        opt.step()
+        e2.record()
+        events.append((e0, e1, e2))
+    torch.cuda.synchronize()
+    step_ms = [a.elapsed_time(c) for a, _, c in events]
+    fwd_ms = statistics.median(a.elapsed_time(b) for a, b, _ in events)
+    per_step = {k: v / 5 for k, v in cuda_gram.launches.items()}
+    with torch.no_grad():
+        noise = exact_gp.noise_value(params)
+        pre_ms = cuda_ms(lambda: iterative._build_pre(exp.model, params,
+                                                      buffers, x, noise),
+                         iters=3)
+    say(7, f"5 timed steps: median {statistics.median(step_ms):.2f} ms/step "
+           f"(all {', '.join(f'{v:.2f}' for v in step_ms)}; forward median "
+           f"{fwd_ms:.2f} ms, the rest backward + Adam); rank-"
+           f"{exp.model.precond_rank} preconditioner alone {pre_ms:.2f} ms; "
+           f"launches per step {per_step}; device->host syncs in one step "
+           f"{sum(syncs.values())} {syncs} "
+           f"(run_split's trainer adds one loss read per 8 steps); loss "
+           f"{float(loss.detach()):.5f}")
+
+
 def main():
-    os.environ.setdefault("RPAGP_NO_NATIVE", "1")  # numpy k-fold permutation
     import torch
 
     if not torch.cuda.is_available():
@@ -466,18 +778,26 @@ def main():
     phase2_kernels(results)
     phase3_slice()
     phase4_main_path(results)
+    phase5_gram_kernels(results)
+    phase6_bbmm_mll()
+    phase7_bbmm_main_path(results)
     source = {"chol_linv": "rpagp_torch/csrc/chol_linv.cu",
               "chol_linv_batched": "rpagp_torch/csrc/chol_linv.cu",
               "interp_transpose": "rpagp_torch/csrc/interp.cu",
-              "interp_apply_sum": "rpagp_torch/csrc/interp.cu"}
+              "interp_apply_sum": "rpagp_torch/csrc/interp.cu",
+              "gram_mvm": "rpagp_torch/csrc/gram_mvm.cu",
+              "gram_mvm_bwd": "rpagp_torch/csrc/gram_mvm.cu"}
     replaces = {"chol_linv": "rpagp/ops/pallas_chol.py:190",
                 "chol_linv_batched": "rpagp/ops/pallas_chol.py:381",
                 "interp_transpose": "rpagp/ops/pallas_interp.py:108",
-                "interp_apply_sum": "rpagp/ops/pallas_interp.py:182"}
+                "interp_apply_sum": "rpagp/ops/pallas_interp.py:182",
+                "gram_mvm": "rpagp/ops/pallas_gram.py:86",
+                "gram_mvm_bwd": "rpagp/ops/pallas_gram.py:173"}
+    keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     kernels = [{"name": k, "route": "cuda", "source": source[k],
-                "replaces": replaces[k], "launches": r["launches"],
-                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                "plain_ms": r["plain_ms"]} for k, r in results.items()]
+                "replaces": replaces[k], **{f: r[f] for f in keys}}
+               for k, r in results.items()]
     say("done", f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,17 @@
 """rpagp_torch — the PyTorch / CUDA port of rpagp for one NVIDIA H100.
 
 The JAX package `rpagp` stays the reference; this package mirrors its
-module names. Ported so far: the exact grid-solver path of the flagship
-degree-1 SKI model (prepare_buffers -> train_to_convergence on grid_mll
--> grid_posterior), with the three kernels it runs written in CUDA
-(csrc/): K1 chol_linv (ops/cuda_chol.py), K2 interp_transpose and K3
-interp_apply_sum (ops/cuda_interp.py). See ROADMAP.md for the rest.
+module names and imports nothing of it. Ported so far, with the kernels
+each path runs written in CUDA (csrc/):
+- the exact grid-solver path of the flagship degree-1 SKI model
+  (prepare_buffers -> train_to_convergence on grid_mll -> grid_posterior):
+  K1 chol_linv (ops/cuda_chol.py), K2 interp_transpose and K3
+  interp_apply_sum (ops/cuda_interp.py);
+- the BBMM dense path (ops/iterative.py: batched PCG + SLQ training with
+  the probe-estimator backward, the LOVE and chunked-CG posteriors): K4
+  gram_mvm and K5 gram_mvm_bwd (ops/cuda_gram.py), the fused projected
+  Gram x V product and its backward.
+See ROADMAP.md for the rest.
 
 Numerics: f32 throughout with TF32 off. The grid solver's Cholesky
 factors sit at the edge of f32 conditioning, so every matmul runs in

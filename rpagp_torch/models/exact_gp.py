@@ -1,5 +1,5 @@
 """Exact GP model: mean + projected kernel + Gaussian likelihood
-(subset of rpagp/models/exact_gp.py: the grid-solver path).
+(subset of rpagp/models/exact_gp.py: the grid-solver and BBMM paths).
 
 The model is a static `ModelSpec` plus two dicts of tensors:
   params:  {"raw_noise", "mean_const", "kernel": {"raw_lengthscale",
@@ -59,14 +59,20 @@ def prepare_buffers(spec: ModelSpec, params, buffers, x_train, y_train=None):
     """Attach the per-dataset grid-solver caches (hyperparameter-free):
     the SKI geometry and S = U^T U; with y_train also U^T y, U^T 1 and
     the anchored value cache, after which the MLL step does no work that
-    scales with n. Only evaluate grid_mll on this same split afterwards."""
+    scales with n. Only evaluate grid_mll on this same split afterwards.
+    A spec without SKI needs no cache: its buffers come back unchanged."""
     from ..ops import grid_solve
 
-    if not (spec.kernel.ski and grid_solve.use_grid_solver(
-            spec, x_train.shape[0])):
+    if not spec.kernel.ski:
+        if spec.precond_refresh > 1 and spec.precond_rank > 0:
+            raise NotImplementedError(
+                "precond_refresh > 1 (the cached preconditioner): ROADMAP "
+                "slice 10")
+        return buffers
+    if not grid_solve.use_grid_solver(spec, x_train.shape[0]):
         raise NotImplementedError(
-            "only the exact grid-solver path is ported; the BBMM path is "
-            "ROADMAP slice 10 and the dense Cholesky path slice 8")
+            "SKI + BBMM (the SKI geometry cache, ski.ski_mvm): ROADMAP "
+            "slice 3")
     kspec = spec.kernel
     state = grid_solve.ski.build_ski(kspec, params["kernel"],
                                      buffers["kernel"], x_train,

@@ -3,7 +3,8 @@
 At first use, `nvcc` compiles every source into one shared library with a
 plain C interface, under rpagp_torch/_build/, named by a hash of the
 sources (a changed source builds a new library; an unchanged one is
-reused). The library is loaded with ctypes: pointers and the stream go as
+reused). Each source compiles in its own `nvcc`, all started together,
+and one more `nvcc` links the objects. The library is loaded with ctypes: pointers and the stream go as
 `c_void_p`, sizes as `c_int`, and every entry point returns
 `cudaGetLastError()`, which `check` turns into an exception.
 
@@ -32,6 +33,9 @@ _SIGNATURES = {
     "rpagp_chol_linv": [_P, _P, _P, _P, _I, _I, _P],
     "rpagp_interp_transpose": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "rpagp_interp_apply_sum": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "rpagp_gram_mvm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "rpagp_gram_mvm_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _P],
 }
 
 _lib = None
@@ -67,20 +71,40 @@ def build() -> str:
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", tmp] + _sources()
+    nvcc = _nvcc()
+    arch = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
+    work = tempfile.mkdtemp(dir=BUILD_DIR)
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds = time.perf_counter() - t0
-    with open(so[:-3] + ".log", "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, so)
+    try:
+        jobs = []
+        for src in _sources():
+            obj = os.path.join(work, os.path.basename(src) + ".o")
+            cmd = [nvcc, *arch, "-c", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+                   "-o", obj, src]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log, failed = [], []
+        for cmd, _, proc in jobs:
+            out = proc.communicate()[0]
+            log.append(" ".join(cmd) + "\n" + out)
+            if proc.returncode != 0:
+                failed.append(out)
+        if not failed:
+            tmp = os.path.join(work, "lib.so")
+            cmd = [nvcc, *arch, "-shared", "-o", tmp] + [o for _, o, _ in jobs]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(proc.stderr)
+        build_seconds = time.perf_counter() - t0
+        with open(so[:-3] + ".log", "w") as f:
+            f.write("\n".join(log))
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        os.replace(tmp, so)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return so
 
 

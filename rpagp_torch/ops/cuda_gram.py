@@ -1,0 +1,234 @@
+"""K4 / K5: the fused projected additive Gram x V product and its backward.
+
+Port of rpagp/ops/pallas_gram.py (`_gram_mvm_kernel` / `_gram_mvm_fwd_call`,
+`_gram_mvm_bwd_kernel` / `_gram_mvm_bwd_call`, the VJP of `_make_pgm`) as
+CUDA kernels (csrc/gram_mvm.cu), in the JAX package's layouts:
+
+  gram_mvm(z1, z2, w, V, base)         out = K V, (n, t)
+  gram_mvm_bwd(z1, z2, w, V, G, base)  (dz1 (n, J), dw (J,)) for cotangent G
+
+with K[i, l] = sum_j w_j k1d(z1[i, j] - z2[l, j]); z1 (n, J) and z2 (m, J)
+are lengthscale-scaled projected coordinates, w (J,) the component
+weights, V (m, t). The Gram is never stored.
+
+`projected_gram_mvm` is the differentiable product (a
+torch.autograd.Function with the VJP of `_make_pgm`: dV is K4 with the
+sides swapped, dz1 and dw are K5, dz2 is K5 with both the coordinate
+and the value sides swapped). A CPU tensor takes the plain versions
+(blocked dense PyTorch with the same closed-form math); a CUDA tensor
+launches the kernels; anything else raises.
+
+The TPU kernel's `prec` and `bf16_exp` options are matrix-unit modes of
+the TPU; here everything is f32 with the accurate exp.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import _build
+from .kernels import _k1d as k1d_tile
+
+# launches of the CUDA kernels, per entry point
+launches = {"gram_mvm": 0, "gram_mvm_bwd": 0}
+
+BASES = ("rbf", "matern12", "matern32", "matern52")
+J_MAX = 64  # csrc/gram_mvm.cu J_MAX: components per launch
+_ROWS_PER_BLOCK = 64  # csrc/gram_mvm.cu TI (K5 writes one dw partial each)
+_TC_TILES = (1, 16, 32)  # K4 template widths of the V tile
+_PLAIN_ELEMS = 1 << 25  # plain versions: (rows, m, J) elements per block
+
+_SQRT3 = math.sqrt(3.0)
+_SQRT5 = math.sqrt(5.0)
+
+
+def k1d_grad_tile(base: str, d):
+    """d k1d(d) / d d (0 at d = 0 for the Matern bases, via sign(0) = 0)."""
+    if base == "rbf":
+        return -d * torch.exp(-0.5 * d * d)
+    a = torch.abs(d)
+    sgn = torch.sign(d)
+    if base == "matern12":
+        return -sgn * torch.exp(-a)
+    if base == "matern32":
+        s = _SQRT3 * a
+        return -sgn * _SQRT3 * s * torch.exp(-s)
+    if base == "matern52":
+        s = _SQRT5 * a
+        return -sgn * _SQRT5 * (s + s * s) / 3.0 * torch.exp(-s)
+    raise ValueError(f"unknown 1-D base kernel {base!r}")
+
+
+def _plain_rows(z1, z2):
+    return max(1, _PLAIN_ELEMS // max(1, z2.shape[0] * z1.shape[1]))
+
+
+def gram_mvm_plain(z1, z2, w, V, base: str = "rbf"):
+    """out = K V by row blocks of the dense (rows, m, J) difference tensor."""
+    out = torch.empty(z1.shape[0], V.shape[1], dtype=V.dtype, device=V.device)
+    rows = _plain_rows(z1, z2)
+    for s in range(0, z1.shape[0], rows):
+        d = z1[s:s + rows, None, :] - z2[None, :, :]  # (rows, m, J)
+        K = torch.sum(k1d_tile(base, d) * w, dim=-1)  # (rows, m)
+        out[s:s + rows] = K @ V
+    return out
+
+
+def gram_mvm_bwd_plain(z1, z2, w, V, G, base: str = "rbf"):
+    """(dz1, dw) of out = K V for cotangent G (n, t), by row blocks."""
+    dz = torch.empty_like(z1)
+    dw = torch.zeros_like(w)
+    rows = _plain_rows(z1, z2)
+    for s in range(0, z1.shape[0], rows):
+        Gm = (G[s:s + rows] @ V.T)[:, :, None]  # (rows, m, 1)
+        d = z1[s:s + rows, None, :] - z2[None, :, :]
+        dz[s:s + rows] = w * torch.sum(Gm * k1d_grad_tile(base, d), dim=1)
+        dw += torch.sum(Gm * k1d_tile(base, d), dim=(0, 1))
+    return dz, dw
+
+
+def _check_cuda(name, base, z1, z2, w, *mats):
+    if base not in BASES:
+        raise ValueError(f"{name}: unknown base {base!r}")
+    for x in (z1, z2, w, *mats):
+        if x.device.type != "cuda" or x.dtype != torch.float32:
+            raise TypeError(f"{name} needs float32 CUDA tensors, got "
+                            f"{x.dtype} on {x.device}")
+        if x.device != z1.device:
+            raise ValueError(f"{name}: tensors on {z1.device} and {x.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} needs contiguous tensors, got strides "
+                             f"{x.stride()} for shape {tuple(x.shape)}")
+    J = z1.shape[1] if z1.ndim == 2 else -1
+    if (z1.ndim != 2 or z2.ndim != 2 or z2.shape[1] != J or w.shape != (J,)
+            or J < 1):
+        raise ValueError(f"{name} expects z1 (n, J), z2 (m, J), w (J,) with "
+                         f"J >= 1, got {tuple(z1.shape)}, "
+                         f"{tuple(z2.shape)}, {tuple(w.shape)}")
+
+
+def _component_chunks(z1, z2, w):
+    """The components in groups of at most J_MAX, the most one launch
+    takes (K5 keeps a sum per component in registers): K is the sum of the
+    groups' Grams, and dz, dw are per component. One group up to J_MAX."""
+    J = z1.shape[1]
+    if J <= J_MAX:
+        yield 0, J, z1, z2, w
+        return
+    for j0 in range(0, J, J_MAX):
+        j1 = min(J, j0 + J_MAX)
+        yield (j0, j1, z1[:, j0:j1].contiguous(), z2[:, j0:j1].contiguous(),
+               w[j0:j1])
+
+
+def gram_mvm_cuda(z1, z2, w, V, base: str = "rbf"):
+    _check_cuda("gram_mvm", base, z1, z2, w, V)
+    n = z1.shape[0]
+    m = z2.shape[0]
+    if V.ndim != 2 or V.shape[0] != m:
+        raise ValueError(f"gram_mvm expects V (m={m}, t), got {tuple(V.shape)}")
+    t = V.shape[1]
+    out = torch.empty(n, t, dtype=V.dtype, device=V.device)
+    if n == 0 or t == 0:
+        return out
+    tc_tile = next(c for c in _TC_TILES if c >= min(t, _TC_TILES[-1]))
+    part = out
+    for j0, j1, c1, c2, cw in _component_chunks(z1, z2, w):
+        if j0 > 0:
+            part = torch.empty_like(out)
+        err = _build.lib().rpagp_gram_mvm(
+            c1.data_ptr(), c2.data_ptr(), cw.data_ptr(), V.data_ptr(),
+            part.data_ptr(), n, m, j1 - j0, t, BASES.index(base), tc_tile,
+            _build.stream_ptr(V.device))
+        _build.check(err, "gram_mvm kernel")
+        launches["gram_mvm"] += 1
+        if j0 > 0:
+            out.add_(part)
+    return out
+
+
+def gram_mvm_bwd_cuda(z1, z2, w, V, G, base: str = "rbf"):
+    _check_cuda("gram_mvm_bwd", base, z1, z2, w, V, G)
+    n, J = z1.shape
+    m = z2.shape[0]
+    if V.ndim != 2 or V.shape[0] != m or G.shape != (n, V.shape[1]):
+        raise ValueError(f"gram_mvm_bwd expects V (m={m}, t) and G (n={n}, t),"
+                         f" got {tuple(V.shape)} and {tuple(G.shape)}")
+    t = V.shape[1]
+    dz = torch.empty(n, J, dtype=z1.dtype, device=z1.device)
+    dw = torch.empty(J, dtype=w.dtype, device=w.device)
+    if n == 0 or t == 0:
+        return dz.zero_(), dw.zero_()
+    partial = torch.empty(-(-n // _ROWS_PER_BLOCK), min(J, J_MAX),
+                          dtype=w.dtype, device=w.device)
+    for j0, j1, c1, c2, cw in _component_chunks(z1, z2, w):
+        dzc = dz if j1 - j0 == J else torch.empty(n, j1 - j0, dtype=z1.dtype,
+                                                  device=z1.device)
+        err = _build.lib().rpagp_gram_mvm_bwd(
+            c1.data_ptr(), c2.data_ptr(), cw.data_ptr(), V.data_ptr(),
+            G.data_ptr(), dzc.data_ptr(), partial.data_ptr(),
+            dw[j0:j1].data_ptr(), n, m, j1 - j0, t, BASES.index(base),
+            _build.stream_ptr(V.device))
+        _build.check(err, "gram_mvm_bwd kernel")
+        launches["gram_mvm_bwd"] += 1
+        if dzc is not dz:
+            dz[:, j0:j1] = dzc
+    return dz, dw
+
+
+def gram_mvm(z1, z2, w, V, base: str = "rbf"):
+    """out = K V: z1 (n, J), z2 (m, J), w (J,), V (m, t) -> (n, t)."""
+    if z1.device.type == "cpu":
+        return gram_mvm_plain(z1, z2, w, V, base)
+    if z1.device.type == "cuda":
+        return gram_mvm_cuda(z1, z2, w, V, base)
+    raise TypeError(f"gram_mvm: no kernel for device {z1.device}")
+
+
+def gram_mvm_bwd(z1, z2, w, V, G, base: str = "rbf"):
+    """(dz1, dw) of out = K V for the cotangent G (n, t)."""
+    if z1.device.type == "cpu":
+        return gram_mvm_bwd_plain(z1, z2, w, V, G, base)
+    if z1.device.type == "cuda":
+        return gram_mvm_bwd_cuda(z1, z2, w, V, G, base)
+    raise TypeError(f"gram_mvm_bwd: no kernel for device {z1.device}")
+
+
+class _ProjectedGramMVM(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, z1, z2, w, V, base):
+        ctx.base = base
+        ctx.save_for_backward(z1, z2, w, V)
+        return gram_mvm(z1, z2, w, V, base)
+
+    @staticmethod
+    def backward(ctx, G):
+        z1, z2, w, V = ctx.saved_tensors
+        base = ctx.base
+        G = G.contiguous()
+        need_z1, need_z2, need_w, need_V = ctx.needs_input_grad[:4]
+        dz1 = dz2 = dw = dV = None
+        if need_V:  # K^T G: the forward kernel with the sides swapped
+            dV = gram_mvm(z2, z1, w, G, base)
+        if need_z1 or need_w:
+            dz1, dw = gram_mvm_bwd(z1, z2, w, V, G, base)
+        if need_z2:  # both sides swapped: its dw equals the first one's
+            dz2 = gram_mvm_bwd(z2, z1, w, G, V, base)[0]
+        return dz1, dz2, dw, dV, None
+
+
+def projected_gram_mvm(z1, z2, w, V, base: str = "rbf"):
+    """out = K V for the degree-1 additive projected kernel, differentiable
+    in z1, z2, w and V. Pass the same tensor as z1 and z2 for K(x, x):
+    autograd then adds dz1 and dz2."""
+    return _ProjectedGramMVM.apply(z1, z2, w, V, base)
+
+
+def supports(spec) -> bool:
+    """Specs whose Gram the kernels compute: a projection kernel with one
+    base for all components, every degree 1, sub_dim 1, no SKI."""
+    return (spec.is_projection and len(set(spec.bases)) == 1
+            and all(d == 1 for d in spec.degrees) and spec.sub_dim == 1
+            and not spec.ski)

@@ -1,9 +1,9 @@
-"""Kernel specification and the projected-kernel pieces the grid path
-uses (subset of rpagp/ops/kernels.py).
+"""Kernel specification, the projected Gram and the blocked kernel MVM
+(subset of rpagp/ops/kernels.py: the projection family).
 
 A kernel is a static `KernelSpec` plus dicts of tensors: params
 {"raw_lengthscale", "raw_outputscale"[, "proj"]} and buffers {"proj"}.
-The dense Gram and the blocked MVM are ROADMAP slice 2.
+Full-D and limit kernels are ROADMAP slice 8.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ import math
 from typing import Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..utils.transforms import softplus
 
@@ -133,3 +134,103 @@ def gram_diag(spec: KernelSpec, params, buffers, x):
     """diag K(x, x): k1d(0) = 1 for every base, so sum_j w_j per point."""
     w = _component_scales(spec, params)
     return torch.ones(x.shape[0], dtype=x.dtype, device=x.device) * torch.sum(w)
+
+
+def _component_groups(spec: KernelSpec):
+    """Group components by (degree, base) so each group is one batched op.
+    Returns a list of (degree, base, component_indices, flat_proj_indices),
+    sorted by (degree, base)."""
+    groups = {}
+    offset = 0
+    k = spec.sub_dim
+    for j, (d, b) in enumerate(zip(spec.degrees, spec.bases)):
+        comp_idx, flat_idx = groups.setdefault((d, b), ([], []))
+        comp_idx.append(j)
+        flat_idx.extend(range(offset, offset + d * k))
+        offset += d * k
+    return [(d, b, tuple(ci), tuple(fi))
+            for (d, b), (ci, fi) in sorted(groups.items())]
+
+
+def _take(t, idx):
+    """t[idx] along dim 0. A contiguous run of indices (every group of a
+    kernel with one base and one degree) is a slice: indexing a CUDA
+    tensor with a Python list copies the list to the device and waits."""
+    lo = idx[0]
+    if tuple(idx) == tuple(range(lo, lo + len(idx))):
+        return t[lo:lo + len(idx)]
+    return t[torch.tensor(idx, device=t.device)]
+
+
+def _projected_coords(spec: KernelSpec, params, buffers, x):
+    """x (n, D) -> lengthscale-scaled projected coordinates (M, n)."""
+    P = _get_proj(params, buffers)
+    ls = softplus(params["raw_lengthscale"])  # (num_lengthscales,)
+    if spec.sub_dim > 1:
+        ls = torch.repeat_interleave(ls, spec.sub_dim)
+    return (x @ P / ls).T
+
+
+def _projection_gram(spec: KernelSpec, params, buffers, x1, x2):
+    """Dense RPA Gram (n, m); materializes (J, n, m) per group, so only for
+    small blocks (the CG path goes through `mvm`)."""
+    u1 = _projected_coords(spec, params, buffers, x1)  # (M, n)
+    u2 = u1 if x2 is x1 else _projected_coords(spec, params, buffers, x2)
+    w = _component_scales(spec, params)
+    n, m = x1.shape[0], x2.shape[0]
+    out = torch.zeros(n, m, dtype=x1.dtype, device=x1.device)
+    for d, base, comp_idx, flat_idx in _component_groups(spec):
+        dk = d * spec.sub_dim  # 1-D factors per component
+        t = (_take(u1, flat_idx)[:, :, None]
+             - _take(u2, flat_idx)[:, None, :])  # (g*dk, n, m)
+        kv = _k1d(base, t)
+        if dk > 1:
+            kv = torch.prod(kv.reshape(len(comp_idx), dk, n, m), dim=1)
+        else:
+            kv = kv.reshape(len(comp_idx), n, m)
+        out = out + torch.tensordot(_take(w, comp_idx), kv, dims=1)
+    return out
+
+
+def gram(spec: KernelSpec, params, buffers, x1, x2):
+    """Dense Gram matrix K(x1, x2), (n, m)."""
+    if spec.is_projection:
+        return _projection_gram(spec, params, buffers, x1, x2)
+    raise NotImplementedError(
+        f"kernel family {spec.family!r}: full-D and limit kernels are "
+        "ROADMAP slice 8")
+
+
+def mvm(spec: KernelSpec, params, buffers, x1, x2, V, block_rows: int = 2048,
+        allow_pallas: bool = False):
+    """K(x1, x2) @ V, (n, t), without materializing the (n, m) Gram.
+
+    On a CUDA tensor, with allow_pallas and a spec the kernels support
+    (cuda_gram.supports), this is K4 (backward K5) through
+    cuda_gram.projected_gram_mvm. Otherwise row blocks of K are built and
+    contracted one at a time, with the block capped so the (M, block, m)
+    intermediate stays within 2^26 elements, and each block recomputed in
+    backward (torch.utils.checkpoint), so reverse mode stores O(block * t)
+    and not the Gram slabs."""
+    from . import cuda_gram
+
+    if allow_pallas and x1.device.type == "cuda" and cuda_gram.supports(spec):
+        u1 = _projected_coords(spec, params, buffers, x1).T.contiguous()
+        u2 = (u1 if x2 is x1 else
+              _projected_coords(spec, params, buffers, x2).T.contiguous())
+        w = _component_scales(spec, params).contiguous()
+        return cuda_gram.projected_gram_mvm(u1, u2, w, V.contiguous(),
+                                            spec.bases[0])
+
+    n, m = x1.shape[0], x2.shape[0]
+    M_total = max(1, spec.total_proj_dims if spec.is_projection else 1)
+    block_rows = min(block_rows, max(16, (1 << 26) // (M_total * max(m, 1))))
+
+    def block_fn(xb):
+        return gram(spec, params, buffers, xb, x2) @ V
+
+    grad = torch.is_grad_enabled()
+    outs = [checkpoint(block_fn, x1[s:s + block_rows], use_reentrant=False)
+            if grad else block_fn(x1[s:s + block_rows])
+            for s in range(0, n, block_rows)]
+    return outs[0] if len(outs) == 1 else torch.cat(outs)

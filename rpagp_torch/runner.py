@@ -1,9 +1,12 @@
 """Experiment runner CLI: datasets x CV splits -> CSV of RMSE/NLL/time
-(port of rpagp/runner.py, single device, exact grid-solver path).
+(port of rpagp/runner.py, single device: the exact grid-solver path and
+the BBMM path).
 
 Usage:
   python -m rpagp_torch.runner --model_spec specs/rp_ski_houseelectric_j20.json \
       --datasets houseelectric --splits 10 --max_splits 1
+  python -m rpagp_torch.runner --model_spec specs/rp_bbmm_elevators.json \
+      --datasets elevators --splits 10 --max_splits 1
 """
 
 from __future__ import annotations
@@ -48,7 +51,8 @@ def run_split(exp: ExperimentSpec, split, seed: int = 0, device="cuda",
     """Train on one split and evaluate on its test fold; returns the
     metrics dict of one CSV row. The projection is drawn from a CPU
     torch.Generator seeded with `seed`, so it does not depend on the
-    device. timings, when given, receives prepare/train/posterior
+    device; the BBMM path's probes from a generator on the device seeded
+    with seed + 1. timings, when given, receives prepare/train/posterior
     seconds (each ends in a device synchronize)."""
     device = torch.device(device)
     if exp.model_family != "exact_gp":
@@ -68,13 +72,21 @@ def run_split(exp: ExperimentSpec, split, seed: int = 0, device="cuda",
     _sync(device)
     t_prepare = time.perf_counter() - tP
 
+    # the grid solver is deterministic; the BBMM loss draws new probes
+    # every step and the trainer smooths its patience with an EMA
+    grid = grid_solve.use_grid_solver(spec, n)
+    iterative = (n > spec.max_cholesky_size or spec.kernel.ski) and not grid
+    gen_probes = None
+    if iterative:
+        gen_probes = torch.Generator(device=device).manual_seed(seed + 1)
     t0 = time.perf_counter()
     res = train_to_convergence(
-        lambda p, b, xx, yy: -mll_fn(spec, p, b, xx, yy) / n,
+        lambda p, b, xx, yy, *g: -mll_fn(spec, p, b, xx, yy, *g) / n,
         params,
         exp.train,
         loss_args=(buffers, x, y),
         sync_every=8,
+        generator=gen_probes,
     )
     _sync(device)
     train_time = time.perf_counter() - t0
@@ -89,12 +101,13 @@ def run_split(exp: ExperimentSpec, split, seed: int = 0, device="cuda",
                        posterior_s=t_post)
     # the ladders are silent by design: say once per split whether the
     # posterior's factor (at the returned params) left the exact level
-    t_max = float(torch.max(grid_solve.stats["t_levels"]))
-    c_over = float(grid_solve.stats["c_level"])
-    if t_max > 1.0 or c_over > 0.0:
-        print(f"[diag] grid-factor jitter fallback engaged at best params: "
-              f"T-ladder x{t_max:.3g}, C-chol {c_over:.3g} * noise",
-              file=sys.stderr)
+    if grid:
+        t_max = float(torch.max(grid_solve.stats["t_levels"]))
+        c_over = float(grid_solve.stats["c_level"])
+        if t_max > 1.0 or c_over > 0.0:
+            print(f"[diag] grid-factor jitter fallback engaged at best "
+                  f"params: T-ladder x{t_max:.3g}, C-chol {c_over:.3g} * "
+                  f"noise", file=sys.stderr)
     return {
         "rmse": rmse,
         "nll": nll,
@@ -108,7 +121,8 @@ def run_split(exp: ExperimentSpec, split, seed: int = 0, device="cuda",
 
 def main(argv=None):
     ap = argparse.ArgumentParser(
-        description="RPA-GP experiment runner (PyTorch port, exact grid path)")
+        description="RPA-GP experiment runner (PyTorch port: exact grid and "
+                    "BBMM paths)")
     ap.add_argument("--model_spec", required=True, help="path to JSON model spec")
     ap.add_argument("--datasets", nargs="+", required=True)
     ap.add_argument("--splits", type=int, default=10, help="k for k-fold CV")

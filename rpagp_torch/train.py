@@ -19,6 +19,8 @@ import torch
 
 from .utils.config import TrainConfig, make_optimizer
 
+_EMA_DECAY = 0.8  # the stochastic tracker's EMA (rpagp/train.py:199)
+
 
 @dataclasses.dataclass
 class TrainResult:
@@ -34,22 +36,30 @@ class TrainResult:
 
 @dataclasses.dataclass
 class ConvergenceTracker:
-    """Best-loss patience stopping on the raw loss (the grid solver is
-    deterministic; the JAX package's EMA smoothing serves only its
-    stochastic BBMM path, ROADMAP slice 10)."""
+    """Best-loss patience stopping. stochastic=True compares an EMA of the
+    loss (the BBMM loss is noisy: probes are drawn anew every step); the
+    deterministic grid solver compares the raw loss."""
 
     patience: int
     rel_tol: float
+    stochastic: bool = False
     best: float = float("inf")
     best_params: object = None
     bad: int = 0
+    _ema: float | None = None
 
     def update(self, loss: float, params) -> bool:
         """Record one step's loss; returns True when patience is exhausted."""
+        crit = loss
+        if self.stochastic:
+            self._ema = (loss if self._ema is None
+                         else _EMA_DECAY * self._ema
+                         + (1.0 - _EMA_DECAY) * loss)
+            crit = self._ema
         # best == inf guard: inf - rel_tol*inf is nan
         if self.best == float("inf") or \
-                loss < self.best - self.rel_tol * max(1.0, abs(self.best)):
-            self.best, self.best_params, self.bad = loss, params, 0
+                crit < self.best - self.rel_tol * max(1.0, abs(self.best)):
+            self.best, self.best_params, self.bad = crit, params, 0
             return False
         self.bad += 1
         return self.bad >= self.patience
@@ -73,13 +83,17 @@ def train_to_convergence(
     train_config: TrainConfig,
     loss_args=(),
     sync_every: int = 1,
+    generator=None,
 ) -> TrainResult:
     """Adam to convergence with patience stopping on the best loss seen:
     stop when the loss has not improved by `rel_tol` for `patience`
     consecutive steps, or at `max_iters` (all three from train_config,
     with the optimizer and LR schedule, utils.config.make_optimizer).
 
-    loss_fn(params, *loss_args) -> 0-d tensor. params: dict tree of
+    loss_fn(params, *loss_args) -> 0-d tensor; with a `generator` (a
+    torch.Generator), loss_fn(params, *loss_args, generator), which draws
+    fresh probes from it every step, and patience runs on an EMA of the
+    noisy loss. params: dict tree of
     tensors (copied; the caller's are not modified). sync_every: read
     losses from the device every k steps; the parameter trajectory is the
     same for any k, only stop detection lags (up to k-1 extra steps run
@@ -90,7 +104,9 @@ def train_to_convergence(
     opt, sched = make_optimizer(train_config, _leaves(params))
     tracker = ConvergenceTracker(patience=train_config.patience,
                                  rel_tol=train_config.rel_tol,
+                                 stochastic=generator is not None,
                                  best_params=params)
+    extra = () if generator is None else (generator,)
     max_iters = train_config.max_iters
     losses = []
     t0 = time.perf_counter()
@@ -99,7 +115,7 @@ def train_to_convergence(
     for i in range(max_iters):
         pprev = _tree_map(lambda t: t.detach().clone(), params)
         opt.zero_grad(set_to_none=True)
-        loss = loss_fn(params, *loss_args)
+        loss = loss_fn(params, *loss_args, *extra)
         loss.backward()
         opt.step()
         sched.step()

@@ -1,10 +1,11 @@
 """Carry (params, buffers) trees between the JAX package and the port.
 
 The JAX package keeps params and buffers as pytrees of arrays (dicts,
-plus the SKIState NamedTuple); the port keeps dicts of tensors and its
-own SKIState. `to_torch` takes the JAX trees as numpy arrays (for
-example after jax.device_get) and returns the port's; `to_numpy` goes
-back, which is how gradients are compared. RNG streams do not port, so
+plus NamedTuples: SKIState, and the BBMM path's Preconditioner,
+LoveCache and CGResult); the port keeps dicts of tensors and its own
+NamedTuples of the same fields. `to_torch` takes the JAX trees as numpy
+arrays (for example after jax.device_get) and returns the port's;
+`to_numpy` goes back, which is how gradients are compared. RNG streams do not port, so
 the tests hand both packages the same projections this way.
 """
 
@@ -13,13 +14,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.cg import CGResult
+from ..ops.love import LoveCache
+from ..ops.precond import Preconditioner
 from ..ops.ski import SKIState
+
+# NamedTuples carried field for field, keyed by their fields
+_TUPLES = {cls._fields: cls for cls in (CGResult, LoveCache, Preconditioner)}
 
 
 def to_torch(tree, device="cpu"):
     """numpy / array-like tree -> the same tree of tensors on `device`
-    (floating arrays as float32). A JAX SKIState becomes the port's; its
-    sorted-plan fields must be None (only the dense plan ports)."""
+    (floating arrays as float32). A JAX SKIState becomes the port's (its
+    sorted-plan fields must be None: only the dense plan ports), and a
+    JAX CGResult, LoveCache or Preconditioner the port's of that name."""
     if isinstance(tree, dict):
         return {k: to_torch(v, device) for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "tfrac"):
@@ -29,6 +37,8 @@ def to_torch(tree, device="cpu"):
             raise ValueError(f"only the dense SKI plan ports; got {extra}")
         return SKIState(*(to_torch(getattr(tree, f), device)
                           for f in SKIState._fields))
+    if isinstance(tree, tuple) and getattr(tree, "_fields", None) in _TUPLES:
+        return _TUPLES[tree._fields](*(to_torch(v, device) for v in tree))
     t = torch.from_numpy(np.array(tree, copy=True))
     if t.is_floating_point():
         t = t.to(torch.float32)

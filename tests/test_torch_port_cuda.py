@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from rpagp_torch.ops import cuda_chol, cuda_interp
+from rpagp_torch.ops import cuda_chol, cuda_gram, cuda_interp
 
 
 def _rel(a, b):
@@ -75,3 +75,94 @@ def test_interp_matches_plain(cuda_device, t):
     assert _rel(U, cuda_interp.interp_transpose_plain(tf, V, m)) <= 1e-5
     assert _rel(O, cuda_interp.interp_apply_sum_plain(tf, G)) <= 1e-5
     assert bool((O[6:9] == 0).all())
+
+
+def _gram_case(n, m, t, J, seed, dev):
+    rng = np.random.default_rng(seed)
+    z1 = rng.standard_normal((n, J)).astype(np.float32)
+    z2 = rng.standard_normal((m, J)).astype(np.float32)
+    z2[:5] = z1[:5]  # coincident points: d = 0
+    w = (0.2 + rng.random(J)).astype(np.float32)
+    V = rng.standard_normal((m, t)).astype(np.float32)
+    G = rng.standard_normal((n, t)).astype(np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (z1, z2, w, V, G)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("base", cuda_gram.BASES)
+@pytest.mark.parametrize("t", [1, 11, 40])
+def test_gram_mvm_matches_plain(cuda_device, base, t):
+    """K4 and K5 against their plain versions on the card; ragged n, m
+    (not multiples of the 64-row tiles), t over one and several V tiles;
+    each call repeats bit for bit."""
+    z1, z2, w, V, G = _gram_case(1000, 777, t, 10, seed=t, dev=cuda_device)
+    out = cuda_gram.gram_mvm_cuda(z1, z2, w, V, base)
+    dz, dw = cuda_gram.gram_mvm_bwd_cuda(z1, z2, w, V, G, base)
+    torch.cuda.synchronize()
+    assert _rel(out, cuda_gram.gram_mvm_plain(z1, z2, w, V, base)) <= 1e-5
+    dzp, dwp = cuda_gram.gram_mvm_bwd_plain(z1, z2, w, V, G, base)
+    assert _rel(dz, dzp) <= 1e-4 and _rel(dw, dwp) <= 1e-4
+    assert torch.equal(out, cuda_gram.gram_mvm_cuda(z1, z2, w, V, base))
+    dz2, dw2 = cuda_gram.gram_mvm_bwd_cuda(z1, z2, w, V, G, base)
+    assert torch.equal(dz, dz2) and torch.equal(dw, dw2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("same", [False, True], ids=["cross", "self"])
+def test_gram_mvm_gradients_match_cpu(cuda_device, same):
+    """dz1, dz2, dw, dV through the autograd.Function: K4/K5 on the card
+    against the plain versions on the CPU."""
+    z1, z2, w, V, _ = _gram_case(300, 300 if same else 250, 3, 7, seed=1,
+                                 dev="cpu")
+    grads = []
+    for d in (cuda_device, "cpu"):
+        ts = [a.to(d).requires_grad_(True) for a in (z1, z2, w, V)]
+        zb = ts[0] if same else ts[1]
+        torch.sum(torch.sin(cuda_gram.projected_gram_mvm(
+            ts[0], zb, ts[2], ts[3], "matern32"))).backward()
+        grads.append([a.grad for a in ts if a.grad is not None])
+    for a, b in zip(*grads):
+        assert _rel(a, b) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_mvm_launches_kernels_past_one_launchs_components(cuda_device):
+    """J = 65 > J_MAX: kernels.mvm on the card still goes through K4 and
+    K5 (one launch per group of components, never the blocked path), and
+    value and gradients agree with the blocked path on the CPU."""
+    from rpagp_torch.ops import kernels
+    from rpagp_torch.ops.kernels import KernelSpec, init_kernel_params
+
+    spec = KernelSpec.polynomial(J=65, d=1)
+    assert cuda_gram.supports(spec)
+    gen = torch.Generator().manual_seed(0)
+    kp, kb = init_kernel_params(spec, 5, generator=gen)
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((300, 5)).astype(np.float32))
+    V = torch.from_numpy(rng.standard_normal((300, 3)).astype(np.float32))
+    res = []
+    for d in (cuda_device, "cpu"):
+        p = {k: v.to(d).requires_grad_(True) for k, v in kp.items()}
+        b = {k: v.to(d) for k, v in kb.items()}
+        xd = x.to(d)
+        before = dict(cuda_gram.launches)
+        out = kernels.mvm(spec, p, b, xd, xd, V.to(d), allow_pallas=True)
+        torch.sum(torch.sin(out)).backward()
+        if d != "cpu":
+            assert cuda_gram.launches["gram_mvm"] - before["gram_mvm"] == 2
+            assert (cuda_gram.launches["gram_mvm_bwd"]
+                    - before["gram_mvm_bwd"]) == 4
+        res.append([out.detach()] + [p[k].grad for k in sorted(p)])
+    for a, c in zip(*res):
+        assert _rel(a, c) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_gram_mvm_rejects_bad_inputs(cuda_device):
+    z1, z2, w, V, _ = _gram_case(64, 64, 2, 4, seed=2, dev=cuda_device)
+    with pytest.raises(ValueError):
+        cuda_gram.gram_mvm_cuda(z1, z2, w, V.t())  # not contiguous
+    with pytest.raises(ValueError):
+        cuda_gram.gram_mvm_cuda(z1, z2[:, :3].contiguous(), w, V)
+    with pytest.raises(TypeError):
+        cuda_gram.gram_mvm_cuda(z1, z2, w, V.double())
