@@ -2,7 +2,10 @@
 each against its plain PyTorch version at its path's shapes, holds the
 CUDA MLL of each path against the CPU one at full width, and drives each
 ported path through rpagp_torch.runner.run_split at full size:
-- the flagship exact grid-solver path (K1, K2, K3), phases 2-4;
+- the flagship exact grid-solver path (K1's leaf and batch kernels, K2,
+  K3), phases 2-4; K1's leaf kernel is also held bit for bit against the
+  one-block kernel, on a random matrix and on the flagship's C-factor
+  leaves;
 - the BBMM dense path on elevators (K4, K5), phases 5-7.
 
     python3 chip_smoke.py
@@ -149,9 +152,12 @@ def phase2_kernels(results):
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
 
-    # --- K1, B = 1, b = 512: the diagonal leaf of the p x p factor
+    # --- K1, B = 1, b = 512: the diagonal leaf of the p x p factor, on the
+    #     leaf kernel; the one-block kernel on the same input must agree bit
+    #     for bit (the same per-element arithmetic, csrc/chol_tile.cuh)
     A = _spd(1, 512, gen, dev)
     L, Li, ok = cuda_chol.chol_linv_cuda(A, "chol_linv")
+    L1, Li1, ok1 = cuda_chol.chol_linv_cuda(A, "chol_linv_batched")
     Lp, Lip, okp = cuda_chol.chol_linv_plain(A)
     torch.cuda.synchronize()
     eL, eLi = rel(L, Lp), rel(Li, Lip)
@@ -159,8 +165,26 @@ def phase2_kernels(results):
     check(eL <= 1e-5 and eLi <= 1e-5, f"K1 b=512 rel L {eL:.2e} Linv {eLi:.2e}")
     res = rel(L @ L.mT, A)
     check(res <= 1e-5, f"K1 b=512 residual {res:.2e}")
-    ms = cuda_ms(lambda: cuda_chol.chol_linv_cuda(A, "chol_linv"))
-    pms = cuda_ms(lambda: cuda_chol.chol_linv_plain(A))
+    check(torch.equal(L, L1) and torch.equal(Li, Li1) and torch.equal(ok, ok1),
+          f"K1 b=512 leaf kernel differs from the one-block kernel: max abs "
+          f"{max(max_abs(L, L1), max_abs(Li, Li1)):.2e}")
+    L2, Li2, _ = cuda_chol.chol_linv_cuda(A, "chol_linv")
+    check(torch.equal(L, L2) and torch.equal(Li, Li2),
+          "K1 b=512 leaf kernel not bit-identical on a repeat")
+
+    def leaf():
+        return cuda_chol.chol_linv_cuda(A, "chol_linv")
+
+    # in turns: leaf, one-block, plain, leaf
+    ms_a = cuda_ms(leaf, iters=20)
+    ms1 = cuda_ms(lambda: cuda_chol.chol_linv_cuda(A, "chol_linv_batched"),
+                  iters=20)
+    pms = cuda_ms(lambda: cuda_chol.chol_linv_plain(A), iters=20)
+    ms = 0.5 * (ms_a + cuda_ms(leaf, iters=20))
+    say(2, f"K1 (1,512,512): the one-block kernel {ms1:.3f} ms; the leaf "
+           f"kernel's cooperative launch G = {cuda_chol.leaf_grid(512, dev)} "
+           f"blocks of 256 threads, {ms:.3f} ms; bit for bit equal, and "
+           f"repeatable")
     # Cholesky + triangular inverse: 2 b^3 / 3 flops; A in, L and Linv out
     bms, bby, _ = bound(4 * 3 * 512**2, flops=2 * 512**3 / 3)
     # the plain version is cuSOLVER (cholesky_ex + solve_triangular): it is
@@ -321,6 +345,25 @@ def phase2_kernels(results):
                 bound_ms=bms, bound_by=bby, library_ms=None)
 
 
+def _device_ms(fn, calls, names):
+    """torch.profiler over `calls` calls of fn: the device time per call of
+    every kernel and copy, and of the kernels whose name holds each of
+    `names`, in ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in dev) / 1e3 / calls
+    return total, {k: sum(e.self_device_time_total for e in dev
+                          if k in e.key) / 1e3 / calls for k in names}
+
+
 def _grad_relerr(ga, gb):
     """|ga - gb| / |gb| over all gradient leaves together."""
     num = sum(float(((a.cpu().double() - b.cpu().double()) ** 2).sum())
@@ -338,11 +381,15 @@ def phase3_slice():
     rounding, where cuSOLVER (the CUDA probe) and LAPACK (the CPU probe)
     may pick different ladder levels for a block; the line says whether
     they did. At 1e-4 every block factors at the base level on both, so
-    the two devices must make the same choices there."""
+    the two devices must make the same choices there.
+
+    The 512x512 leaves that the CUDA runs hand K1 (the diagonal blocks of
+    the p x p C factor) are kept, and the leaf kernel is held bit for bit,
+    ok flags included, against the one-block kernel on each."""
     import torch
 
     from rpagp_torch.models import exact_gp
-    from rpagp_torch.ops import grid_solve
+    from rpagp_torch.ops import block_chol, cuda_chol, grid_solve
     from rpagp_torch.utils.config import load_spec
 
     spec = load_spec(SPEC).model
@@ -365,6 +412,13 @@ def phase3_slice():
                                      x.to(d), y_train=y.to(d))
         prepared[d] = (b, x.to(d), y.to(d), time.perf_counter() - t0)
 
+    c_leaves = []
+
+    def recording(A):  # block_chol's K1 call, keeping each CUDA leaf
+        if A.is_cuda:
+            c_leaves.append(A.detach().clone())
+        return cuda_chol.chol_linv(A)
+
     for jitter in (spec.grid_jitter, 1e-4):
         sp = dataclasses.replace(spec, grid_jitter=jitter)
         out = {}
@@ -377,7 +431,11 @@ def phase3_slice():
                 t.requires_grad_(True)
             grid_solve.reset_stats()
             t0 = time.perf_counter()
-            v = grid_solve.grid_mll(sp, p, b, xd, yd)
+            block_chol.chol_linv = recording
+            try:
+                v = grid_solve.grid_mll(sp, p, b, xd, yd)
+            finally:
+                block_chol.chol_linv = cuda_chol.chol_linv
             v.backward()
             out[d] = (float(v.detach()), [t.grad for t in leaves],
                       grid_solve.stats["t_levels"].cpu(),
@@ -399,6 +457,21 @@ def phase3_slice():
             check(same, "ladder levels differ between CUDA and CPU")
         check(erel <= 1e-5, f"grid_mll value rel {erel:.2e} > 1e-5")
         check(grel <= 1e-4, f"grid_mll grad relerr {grel:.2e} > 1e-4")
+
+    check(len(c_leaves) > 0, "no K1 leaf on the CUDA grid_mll runs")
+    oks, same = [], 0
+    for A in c_leaves:
+        L, Li, ok = cuda_chol.chol_linv_cuda(A[None], "chol_linv")
+        L1, Li1, ok1 = cuda_chol.chol_linv_cuda(A[None], "chol_linv_batched")
+        oks.append((int(ok), int(ok1)))
+        same += torch.equal(L, L1) and torch.equal(Li, Li1)
+    say(3, f"{len(c_leaves)} C-factor leaves {tuple(c_leaves[0].shape)} of the "
+           f"CUDA grid_mll runs: ok flags leaf kernel "
+           f"{[a for a, _ in oks]}, one-block kernel {[b for _, b in oks]}; "
+           f"bit for bit equal on {same}/{len(c_leaves)}")
+    check(all(a == b for a, b in oks),
+          "C-factor leaves: ok flags differ between the K1 kernels")
+    check(same == len(c_leaves), "C-factor leaves: the K1 kernels differ")
 
 
 def phase4_main_path(results):
@@ -466,23 +539,41 @@ def phase4_main_path(results):
     for t in leaves:
         t.requires_grad_(True)
     opt = torch.optim.Adam(leaves, lr=exp.train.lr)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = -mll(exp.model, params, buffers, x, y) / n
+        loss.backward()
+        opt.step()
+        return loss
+
     grid_solve.reset_stats()
     events = []
     for _ in range(6):  # the first is a warm-up
         e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         e0.record()
-        opt.zero_grad(set_to_none=True)
-        loss = -mll(exp.model, params, buffers, x, y) / n
-        loss.backward()
-        opt.step()
+        loss = step()
         e1.record()
         events.append((e0, e1))
     torch.cuda.synchronize()
     step_ms = [a.elapsed_time(b) for a, b in events[1:]]
-    say(4, f"5 extra steps: median {statistics.median(step_ms):.2f} ms/step "
+    med = statistics.median(step_ms)
+    say(4, f"5 extra steps: median {med:.2f} ms/step "
            f"(all {', '.join(f'{v:.2f}' for v in step_ms)}); host reads "
            f"{grid_solve.stats['host_reads'] / 6:.2f}/step; loss "
            f"{float(loss.detach()):.5f}")
+    busy, by = _device_ms(step, 3,
+                          ("chol_linv_leaf_kernel", "chol_linv_kernel"))
+    if busy == 0:
+        say(4, "torch.profiler recorded no device time: the step's device "
+               "breakdown is not measured")
+        return
+    say(4, f"torch.profiler over 3 more steps: device busy {busy:.2f} ms/step "
+           f"(idle {100 * (1 - busy / med):.0f}% of the {med:.2f} ms step); K1 "
+           f"leaf kernel {by['chol_linv_leaf_kernel']:.2f} ms/step "
+           f"({100 * by['chol_linv_leaf_kernel'] / busy:.1f}% of device time), "
+           f"K1 one-block kernel (the ladder) {by['chol_linv_kernel']:.2f} "
+           f"ms/step")
 
 
 def _gram_case(n, m, t, J, gen, dev):
@@ -781,7 +872,7 @@ def main():
     phase5_gram_kernels(results)
     phase6_bbmm_mll()
     phase7_bbmm_main_path(results)
-    source = {"chol_linv": "rpagp_torch/csrc/chol_linv.cu",
+    source = {"chol_linv": "rpagp_torch/csrc/chol_linv_leaf.cu",
               "chol_linv_batched": "rpagp_torch/csrc/chol_linv.cu",
               "interp_transpose": "rpagp_torch/csrc/interp.cu",
               "interp_apply_sum": "rpagp_torch/csrc/interp.cu",

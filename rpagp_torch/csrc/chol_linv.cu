@@ -1,10 +1,12 @@
-// K1: batched Cholesky factor AND inverse, (B, b, b) -> (L, Linv, ok).
+// K1, the batch: Cholesky factor AND inverse, (B, b, b) -> (L, Linv, ok),
+// one thread block per matrix.
 //
-// Replaces rpagp/ops/pallas_chol.py `_panel_kernel` / `_leaf_kernel`
-// (chol_linv, one block) and `_fused_panel_kernel`
-// (chol_linv_batched_fused, J blocks). On the TPU the batched form needed
-// its own kernel because Pallas grid programs run one after another on one
-// core; here one thread block per matrix serves both entry points.
+// Replaces rpagp/ops/pallas_chol.py `_fused_panel_kernel`
+// (chol_linv_batched_fused, J blocks; pallas_call at :471). On the TPU the
+// batched form needed its own kernel because Pallas grid programs run one
+// after another on one core. The single-matrix entry point (`_panel_kernel`
+// / `_leaf_kernel`) is chol_linv_leaf.cu; this kernel still takes a
+// (1, b, b) input, which is how the two are held against each other.
 //
 // Algorithm: right-looking blocked elimination in 32-wide panels. The L
 // output is the working matrix (the in-place layout of
@@ -23,53 +25,21 @@
 // takes rsd = 1 and a unit column, every output stays finite, ok = 0.
 // L is exactly lower-triangular; only the lower triangle of A is read.
 //
-// What bounds it on the H100: one SM per matrix. At B = 20 (the jitter
-// ladder's 256x256 Toeplitz blocks) 20 of 132 SMs work; at B = 1 (the
-// 512x512 diagonal leaf of the p x p blocked factor) one SM does all of
-// the ~b^3/3 FMAs through L2-resident global memory, with two block-wide
-// barriers per tile. Spreading one matrix over several SMs is the first
-// performance item in ROADMAP.md.
+// What bounds it on the H100: one SM per matrix, with the ~b^3/3 FMAs
+// read and written through L2-resident global memory and two block-wide
+// barriers per tile. At B = 20 (the jitter ladder's 256x256 Toeplitz
+// blocks) 20 of 132 SMs work. The B = 1 entry point (the 512x512
+// diagonal leaf of the p x p blocked factor) has a kernel of its own,
+// chol_linv_leaf.cu, which spreads the same panel schedule over the
+// card's SMs with grid barriers; this kernel serves the batch.
 
 #include <cuda_runtime.h>
 
+#include "chol_tile.cuh"
+
 namespace {
 
-constexpr int NB = 32;   // panel width
-constexpr int NT = 256;  // threads per block: 4 outputs of a 32x32 tile each
-
-typedef float Tile[NB][NB + 1];
-
-__device__ __forceinline__ void load_tile(Tile s, const float* src, int ld,
-                                          int row0, int col0) {
-  for (int e = threadIdx.x; e < NB * NB; e += NT) {
-    int r = e >> 5, c = e & 31;
-    s[r][c] = src[(size_t)(row0 + r) * ld + col0 + c];
-  }
-}
-
-// acc[u] (row r = tid/8, col c = tid%8 + 8u) += sum_q a[r][q] * b[c][q]
-__device__ __forceinline__ void mm_nt(float acc[4], Tile a,
-                                      Tile b) {
-  int r = threadIdx.x >> 3, c0 = threadIdx.x & 7;
-#pragma unroll 8
-  for (int q = 0; q < NB; ++q) {
-    float x = a[r][q];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) acc[u] += x * b[c0 + 8 * u][q];
-  }
-}
-
-// acc[u] += sum_q a[r][q] * b[q][c]
-__device__ __forceinline__ void mm_nn(float acc[4], Tile a,
-                                      Tile b) {
-  int r = threadIdx.x >> 3, c0 = threadIdx.x & 7;
-#pragma unroll 8
-  for (int q = 0; q < NB; ++q) {
-    float x = a[r][q];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) acc[u] += x * b[q][c0 + 8 * u];
-  }
-}
+using namespace k1;
 
 __global__ void __launch_bounds__(NT)
 chol_linv_kernel(const float* __restrict__ A_all, float* L_all,

@@ -2,11 +2,12 @@
 
 At first use, `nvcc` compiles every source into one shared library with a
 plain C interface, under rpagp_torch/_build/, named by a hash of the
-sources (a changed source builds a new library; an unchanged one is
-reused). Each source compiles in its own `nvcc`, all started together,
+sources and their headers (a changed file builds a new library; an
+unchanged set is reused). Each source compiles in its own `nvcc`, all started together,
 and one more `nvcc` links the objects. The library is loaded with ctypes: pointers and the stream go as
 `c_void_p`, sizes as `c_int`, and every entry point returns
-`cudaGetLastError()`, which `check` turns into an exception.
+`cudaGetLastError()` (or the error of a refused launch), which `check`
+turns into an exception that names the error.
 
 Nothing here runs at import, so every module imports without nvcc or a
 card; nvcc runs only when a wrapper is first handed a CUDA tensor.
@@ -31,6 +32,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points: name -> argtypes (all return int cudaError_t)
 _SIGNATURES = {
     "rpagp_chol_linv": [_P, _P, _P, _P, _I, _I, _P],
+    "rpagp_chol_linv_leaf": [_P, _P, _P, _P, _I, _I, _P],
+    "rpagp_chol_linv_leaf_grid": [_I, _P],
     "rpagp_interp_transpose": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "rpagp_interp_apply_sum": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "rpagp_gram_mvm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
@@ -46,6 +49,11 @@ def _sources():
     return sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
 
 
+def _hashed():
+    """The sources and the headers they include (*.cuh)."""
+    return sorted(glob.glob(os.path.join(_CSRC, "*.cu*")))
+
+
 def _nvcc():
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
@@ -56,7 +64,7 @@ def _nvcc():
 
 def library_path() -> str:
     h = hashlib.sha256()
-    for src in _sources():
+    for src in _hashed():
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"librpagp_kernels_{h.hexdigest()[:16]}.so")
@@ -117,13 +125,16 @@ def lib() -> ctypes.CDLL:
             fn = getattr(handle, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        handle.rpagp_cuda_error_name.argtypes = [_I]
+        handle.rpagp_cuda_error_name.restype = ctypes.c_char_p
         _lib = handle
     return _lib
 
 
 def check(err: int, what: str) -> None:
     if err != 0:
-        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+        name = lib().rpagp_cuda_error_name(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({name}) at launch")
 
 
 def stream_ptr(device) -> int:

@@ -2,13 +2,19 @@
 
 Port of rpagp/ops/pallas_chol.py. The TPU package has three Pallas
 kernels (`_leaf_kernel`, `_panel_kernel` behind `chol_linv`, and
-`_fused_panel_kernel` behind `chol_linv_batched_fused`); the batched one
-existed only because Pallas grid programs run one after another on one
-TPU core. Here one CUDA kernel (csrc/chol_linv.cu, one thread block per
-matrix) serves both entry points:
+`_fused_panel_kernel` behind `chol_linv_batched_fused`). Here K1 is two
+CUDA kernels, one per entry point:
 
   chol_linv(A)          (b, b)    -> L, Linv (b, b), ok ()   the 512 leaf
+      csrc/chol_linv_leaf.cu: one matrix, one cooperative launch of G
+      blocks over the card's SMs, with grid barriers between phases
   chol_linv_batched(T)  (J, b, b) -> L, Linv (J, b, b), ok (J,)  the ladder
+      csrc/chol_linv.cu: one thread block per matrix
+
+Each element goes through the same operations in the same order in
+both, so on one matrix they agree bit for bit;
+`chol_linv_cuda(A, "chol_linv_batched")` runs the one-block kernel on a
+(1, b, b) input.
 
 Contract (both): A symmetric, f32. L = chol(A) exactly lower-triangular,
 Linv = L^{-1}, ok = 1.0 / 0.0. On a non-positive pivot every output stays
@@ -24,10 +30,12 @@ diagonal blocks, grid_solve symmetrizes C).
 A CPU tensor takes the plain version (`chol_linv_plain`: cholesky_ex, a
 unit factor where info reports failure, then a triangular solve against
 I, as block_chol._diag_factor's XLA branch); a CUDA tensor launches the
-kernel; anything else raises.
+kernel; anything else raises, as does a refused launch.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -36,7 +44,9 @@ from . import _build
 # launches of the CUDA kernel, per entry point
 launches = {"chol_linv": 0, "chol_linv_batched": 0}
 
-_ALIGN = 32  # the kernel's panel width; other sizes are padded with I
+_ALIGN = 32  # the kernels' panel width; other sizes are padded with I
+
+_leaf_grids = {}  # (device index, b) -> G of the leaf kernel's launch
 
 
 def chol_linv_plain(A):
@@ -50,15 +60,37 @@ def chol_linv_plain(A):
     return L, Linv, ok.to(A.dtype)
 
 
+def leaf_grid(b: int, device) -> int:
+    """G, the blocks of the leaf kernel's cooperative launch at size b (a
+    multiple of 32) on a CUDA device: the blocks that fit the card at
+    once, capped at 1 + the most tiles one of its phases deals out."""
+    device = torch.device(device)
+    key = (device.index if device.index is not None
+           else torch.cuda.current_device(), b)
+    if key not in _leaf_grids:
+        G = ctypes.c_int(0)
+        with torch.cuda.device(key[0]):
+            err = _build.lib().rpagp_chol_linv_leaf_grid(
+                b, ctypes.addressof(G))
+        _build.check(err, "chol_linv_leaf occupancy query")
+        _leaf_grids[key] = G.value
+    return _leaf_grids[key]
+
+
 def chol_linv_cuda(A, name: str):
-    """Launch K1 on a (B, b, b) f32 contiguous CUDA batch. A size b that
-    is not a multiple of 32 is embedded as blockdiag(A, I), whose factor
-    and inverse are blockdiag(., I), and sliced back."""
+    """Launch K1 on a (B, b, b) f32 contiguous CUDA batch: the leaf kernel
+    for name "chol_linv" (B = 1), the one-block kernel for
+    "chol_linv_batched". A size b that is not a multiple of 32 is
+    embedded as blockdiag(A, I), whose factor and inverse are
+    blockdiag(., I), and sliced back."""
+    if A.ndim != 3 or A.shape[1] != A.shape[2] or A.shape[1] == 0:
+        raise ValueError(f"chol_linv_cuda expects (B, b, b), got {tuple(A.shape)}")
+    if name == "chol_linv" and A.shape[0] != 1:
+        raise ValueError(f"the leaf kernel factors one matrix, got a batch "
+                         f"of {A.shape[0]}")
     if A.device.type != "cuda" or A.dtype != torch.float32:
         raise TypeError(f"chol_linv_cuda needs a float32 CUDA tensor, got "
                         f"{A.dtype} on {A.device}")
-    if A.ndim != 3 or A.shape[1] != A.shape[2] or A.shape[1] == 0:
-        raise ValueError(f"chol_linv_cuda expects (B, b, b), got {tuple(A.shape)}")
     if not A.is_contiguous():
         raise ValueError("chol_linv_cuda expects a contiguous tensor")
     B, b = A.shape[0], A.shape[-1]
@@ -72,10 +104,14 @@ def chol_linv_cuda(A, name: str):
     Linv = torch.empty_like(A)
     ok = torch.empty(B, dtype=A.dtype, device=A.device)
     lib = _build.lib()
-    err = lib.rpagp_chol_linv(A.data_ptr(), L.data_ptr(), Linv.data_ptr(),
-                              ok.data_ptr(), B, bp,
-                              _build.stream_ptr(A.device))
-    _build.check(err, "chol_linv kernel")
+    args = (A.data_ptr(), L.data_ptr(), Linv.data_ptr(), ok.data_ptr())
+    stream = _build.stream_ptr(A.device)
+    if name == "chol_linv":
+        err = lib.rpagp_chol_linv_leaf(*args, bp, leaf_grid(bp, A.device),
+                                       stream)
+    else:
+        err = lib.rpagp_chol_linv(*args, B, bp, stream)
+    _build.check(err, f"{name} kernel")
     launches[name] += 1
     if bp != b:
         L, Linv = L[:, :b, :b].contiguous(), Linv[:, :b, :b].contiguous()

@@ -57,6 +57,96 @@ def test_chol_linv_indefinite_block(cuda_device):
     assert bool(torch.isfinite(L).all() and torch.isfinite(Linv).all())
 
 
+def _leaf(A):
+    """The leaf kernel on one (b, b) matrix, and the one-block kernel on
+    the same input as a (1, b, b) batch."""
+    leaf = cuda_chol.chol_linv_cuda(A[None].contiguous(), "chol_linv")
+    one = cuda_chol.chol_linv_cuda(A[None].contiguous(), "chol_linv_batched")
+    torch.cuda.synchronize()
+    return leaf, one
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [512, 256, 100, 32])
+def test_chol_linv_leaf_matches_plain(cuda_device, b):
+    """The multi-SM leaf kernel against cuSOLVER; b=100 goes through the
+    identity-tail pad to 128, b=32 is one panel (one block)."""
+    A = torch.from_numpy(_spd(b, seed=b)).to(cuda_device)
+    before = cuda_chol.launches["chol_linv"]
+    L, Linv, ok = cuda_chol.chol_linv_cuda(A[None].contiguous(), "chol_linv")
+    assert cuda_chol.launches["chol_linv"] == before + 1
+    Lp, Linvp, okp = cuda_chol.chol_linv_plain(A[None])
+    torch.cuda.synchronize()
+    assert torch.equal(ok, okp) and bool((ok == 1).all())
+    assert _rel(L, Lp) <= 1e-5
+    assert _rel(Linv, Linvp) <= 1e-5
+    assert float(torch.max(torch.abs(torch.triu(L, 1)))) == 0.0
+    assert 1 <= cuda_chol.leaf_grid(-(-b // 32) * 32, cuda_device)
+
+
+@pytest.mark.cuda
+def test_chol_linv_leaf_equals_one_block_kernel(cuda_device):
+    """Both kernels run the same per-element arithmetic in the same order:
+    at (1, 512, 512) they agree bit for bit, and a second leaf launch
+    repeats the first bit for bit."""
+    A = torch.from_numpy(_spd(512, seed=3)).to(cuda_device)
+    (L, Linv, ok), (L1, Linv1, ok1) = _leaf(A)
+    assert torch.equal(L, L1) and torch.equal(Linv, Linv1)
+    assert torch.equal(ok, ok1)
+    L2, Linv2, ok2 = cuda_chol.chol_linv_cuda(A[None].contiguous(),
+                                              "chol_linv")
+    assert torch.equal(L, L2) and torch.equal(Linv, Linv2)
+    assert torch.equal(ok, ok2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("panel", [0, 7, 15])
+def test_chol_linv_leaf_indefinite(cuda_device, panel):
+    """A pivot fails in the given 32-wide panel of a 512 matrix: ok = 0,
+    every output finite, and the one-block kernel's outputs bit for bit."""
+    A = _spd(512, seed=panel)
+    s = 32 * panel + 5
+    A[s:, s:] -= 10.0 * np.eye(512 - s, dtype=np.float32)
+    (L, Linv, ok), (L1, Linv1, ok1) = _leaf(torch.from_numpy(A).to(
+        cuda_device))
+    assert ok.tolist() == [0.0] and ok1.tolist() == [0.0]
+    assert bool(torch.isfinite(L).all() and torch.isfinite(Linv).all())
+    assert torch.equal(L, L1) and torch.equal(Linv, Linv1)
+
+
+@pytest.mark.cuda
+def test_chol_linv_leaf_gradient_matches_cpu(cuda_device):
+    """The closed-form VJP through cuda_chol.chol_linv: leaf kernel on the
+    card against cuSOLVER's replacement, LAPACK, on the CPU."""
+    A0 = torch.from_numpy(_spd(512, seed=4))
+    rng = np.random.default_rng(5)
+    R1, R2 = (torch.from_numpy(rng.standard_normal((512, 512)).astype(
+        np.float32)) for _ in range(2))
+    grads = []
+    for d in (cuda_device, "cpu"):
+        Ad = A0.to(d).requires_grad_(True)
+        L, Linv, _ = cuda_chol.chol_linv(0.5 * (Ad + Ad.mT))
+        (torch.sum(L * R1.to(d)) + torch.sum(Linv * R2.to(d))).backward()
+        grads.append(Ad.grad)
+    assert _rel(grads[0], grads[1]) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_chol_linv_leaf_refused_launch_raises(cuda_device):
+    """More blocks than the card holds at once: the cooperative launch is
+    refused, and the wrapper's check names the CUDA error."""
+    from rpagp_torch.ops import _build
+
+    A = torch.eye(64, device=cuda_device)
+    L, Linv, ok = (torch.empty_like(A) for _ in range(3))
+    err = _build.lib().rpagp_chol_linv_leaf(
+        A.data_ptr(), L.data_ptr(), Linv.data_ptr(), ok.data_ptr(), 64,
+        1 << 20, _build.stream_ptr(A.device))
+    with pytest.raises(RuntimeError,
+                       match="cudaErrorCooperativeLaunchTooLarge"):
+        _build.check(err, "chol_linv kernel")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("t", [1, 8, 11])
 def test_interp_matches_plain(cuda_device, t):
