@@ -2,11 +2,14 @@
 each against its plain PyTorch version at its path's shapes, holds the
 CUDA MLL of each path against the CPU one at full width, and drives each
 ported path through rpagp_torch.runner.run_split at full size:
-- the flagship exact grid-solver path (K1's leaf and batch kernels, K2,
-  K3), phases 2-4; K1's leaf kernel is also held bit for bit against the
-  one-block kernel, on a random matrix and on the flagship's C-factor
-  leaves;
-- the BBMM dense path on elevators (K4, K5), phases 5-7.
+- the flagship exact grid-solver path (K1's cooperative kernel behind
+  its two entry points, the 512 leaf and the (20, 256, 256) ladder batch;
+  K2, K3), phases 2-4; K1 is also held bit for bit against the one-block
+  kernel, on random matrices, at every level of the flagship's jitter
+  ladder and on the flagship's C-factor leaves;
+- the BBMM dense path on elevators (K4, K5), phases 5-7; phase 5 also
+  prints the instruction mix of K4's inner loop from the built library's
+  SASS.
 
     python3 chip_smoke.py
 
@@ -37,6 +40,14 @@ N_ELEVATORS_TRAIN, N_ELEVATORS_TEST = 14_939, 1_660  # elevators split 0
 HBM_BYTES_S = 3.35e12
 F32_FLOPS_S = 67e12
 EXP_S = 16 * 132 * 1.98e9
+
+
+# K1's times before it served both entry points with one cooperative
+# kernel (PERF.md section 6, NVIDIA H100 80GB HBM3, 700.00 W): the
+# single-matrix kernel at (1, 512, 512) and the one-block kernel at
+# (20, 256, 256)
+K1_LEAF_BEFORE_MS = "0.2248"
+K1_BATCH_BEFORE_MS = "0.660-0.663"
 
 
 def bound(nbytes, flops=0.0, exps=0.0):
@@ -152,12 +163,15 @@ def phase2_kernels(results):
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
 
+    one_block = cuda_chol.ONE_BLOCK
+
     # --- K1, B = 1, b = 512: the diagonal leaf of the p x p factor, on the
-    #     leaf kernel; the one-block kernel on the same input must agree bit
-    #     for bit (the same per-element arithmetic, csrc/chol_tile.cuh)
+    #     cooperative kernel; the one-block kernel on the same input must
+    #     agree bit for bit (the same per-element arithmetic,
+    #     csrc/chol_tile.cuh)
     A = _spd(1, 512, gen, dev)
     L, Li, ok = cuda_chol.chol_linv_cuda(A, "chol_linv")
-    L1, Li1, ok1 = cuda_chol.chol_linv_cuda(A, "chol_linv_batched")
+    L1, Li1, ok1 = cuda_chol.chol_linv_cuda(A, one_block)
     Lp, Lip, okp = cuda_chol.chol_linv_plain(A)
     torch.cuda.synchronize()
     eL, eLi = rel(L, Lp), rel(Li, Lip)
@@ -166,24 +180,25 @@ def phase2_kernels(results):
     res = rel(L @ L.mT, A)
     check(res <= 1e-5, f"K1 b=512 residual {res:.2e}")
     check(torch.equal(L, L1) and torch.equal(Li, Li1) and torch.equal(ok, ok1),
-          f"K1 b=512 leaf kernel differs from the one-block kernel: max abs "
-          f"{max(max_abs(L, L1), max_abs(Li, Li1)):.2e}")
+          f"K1 b=512 cooperative kernel differs from the one-block kernel: "
+          f"max abs {max(max_abs(L, L1), max_abs(Li, Li1)):.2e}")
     L2, Li2, _ = cuda_chol.chol_linv_cuda(A, "chol_linv")
     check(torch.equal(L, L2) and torch.equal(Li, Li2),
-          "K1 b=512 leaf kernel not bit-identical on a repeat")
+          "K1 b=512 cooperative kernel not bit-identical on a repeat")
 
     def leaf():
         return cuda_chol.chol_linv_cuda(A, "chol_linv")
 
     # in turns: leaf, one-block, plain, leaf
     ms_a = cuda_ms(leaf, iters=20)
-    ms1 = cuda_ms(lambda: cuda_chol.chol_linv_cuda(A, "chol_linv_batched"),
-                  iters=20)
+    ms1 = cuda_ms(lambda: cuda_chol.chol_linv_cuda(A, one_block), iters=20)
     pms = cuda_ms(lambda: cuda_chol.chol_linv_plain(A), iters=20)
     ms = 0.5 * (ms_a + cuda_ms(leaf, iters=20))
-    say(2, f"K1 (1,512,512): the one-block kernel {ms1:.3f} ms; the leaf "
-           f"kernel's cooperative launch G = {cuda_chol.leaf_grid(512, dev)} "
-           f"blocks of 256 threads, {ms:.3f} ms; bit for bit equal, and "
+    G, C = cuda_chol.coop_grid(1, 512, dev)
+    say(2, f"K1 (1,512,512): the one-block kernel {ms1:.4f} ms; the "
+           f"cooperative kernel, G = {G} blocks of 256 threads, C = {C} "
+           f"chain block, {ms:.4f} ms (the single-matrix kernel it replaced: "
+           f"{K1_LEAF_BEFORE_MS} ms, PERF.md); bit for bit equal, and "
            f"repeatable")
     # Cholesky + triangular inverse: 2 b^3 / 3 flops; A in, L and Linv out
     bms, bby, _ = bound(4 * 3 * 512**2, flops=2 * 512**3 / 3)
@@ -194,6 +209,12 @@ def phase2_kernels(results):
                                 bound_by=bby, library_ms=pms)
     say(2, f"K1 (1,512,512) SPD: rel L {eL:.2e} Linv {eLi:.2e} "
            f"|LL^T-A|/|A| {res:.2e}; {ms:.3f} ms vs plain {pms:.3f} ms")
+
+    def same_as_one_block(T, out):
+        """The cooperative kernel's outputs `out` on T equal the one-block
+        kernel's bit for bit, ok flags included."""
+        ref = cuda_chol.chol_linv_cuda(T, one_block)
+        return all(torch.equal(a, b) for a, b in zip(out, ref))
 
     # --- K1, B = 20, b = 256 on well-conditioned blocks: the 1e-5 bar
     S = _spd(20, 256, gen, dev)
@@ -207,24 +228,36 @@ def phase2_kernels(results):
           f"K1 (20,256,256) SPD rel L {eL:.2e} Linv {eLi:.2e}")
     check(float(torch.max(torch.abs(torch.triu(L0, 1)))) == 0.0,
           "K1 L not exactly lower-triangular")
+    check(same_as_one_block(S, (L0, Li0, ok0)),
+          "K1 (20,256,256) SPD: the cooperative kernel differs from the "
+          "one-block kernel")
     results["chol_linv_batched"] = dict(
         max_abs_err=max(max_abs(L0, Lp), max_abs(Li0, Lip)))
     say(2, f"K1 (20,256,256) SPD: rel L {eL:.2e} Linv {eLi:.2e}; L exactly "
-           f"lower-triangular")
+           f"lower-triangular; bit for bit the one-block kernel's")
 
-    # --- K1, B = 20, b = 256: the flagship Toeplitz blocks + jitter
+    # --- K1, B = 20, b = 256: the flagship Toeplitz blocks + jitter, every
+    #     level of the ladder bit for bit against the one-block kernel
     T, eps0 = _toeplitz_batch(dev)
     eye = torch.eye(256, device=dev)
+    chosen = None
     for mult in grid_solve._LADDER:
-        Tj = (T + (mult * eps0)[:, None, None] * eye).contiguous()
-        L, Li, ok = cuda_chol.chol_linv_cuda(Tj, "chol_linv_batched")
-        Lp, Lip, okp = cuda_chol.chol_linv_plain(Tj)
+        Tl = (T + (mult * eps0)[:, None, None] * eye).contiguous()
+        out = cuda_chol.chol_linv_cuda(Tl, "chol_linv_batched")
+        Lp, Lip, okp = cuda_chol.chol_linv_plain(Tl)
         torch.cuda.synchronize()
+        ok = out[2]
+        same = same_as_one_block(Tl, out)
         say(2, f"K1 Toeplitz (20,256,256) jitter x{mult:g}: ok kernel "
                f"{int(ok.sum())}/20, plain {int(okp.sum())}/20, same blocks "
-               f"{torch.equal(ok, okp)}")
-        if bool((okp == 1).all()) and bool((ok == 1).all()):
-            break
+               f"{torch.equal(ok, okp)}; bit for bit the one-block kernel's "
+               f"{same}")
+        check(same, f"K1 Toeplitz jitter x{mult:g}: the cooperative kernel "
+                    f"differs from the one-block kernel")
+        if chosen is None and bool((okp == 1).all()) and bool((ok == 1).all()):
+            chosen = (mult, Tl, *out, Lp, Lip, okp)
+    check(chosen is not None, "K1 Toeplitz: no ladder level factors all")
+    mult, Tj, L, Li, ok, Lp, Lip, okp = chosen
     # near the base level the pivots sit at f32 rounding, so the flags of
     # two correct factorizations can differ; they must agree where both
     # pass (the level the ladder would pick)
@@ -253,8 +286,31 @@ def phase2_kernels(results):
     # enters Linv itself, not this residual
     check(bool(torch.isfinite(Li).all()) and inv_k <= 256 * 2.0**-24,
           f"K1 Toeplitz Linv residual {inv_k:.2e}")
-    ms = cuda_ms(lambda: cuda_chol.chol_linv_cuda(Tj, "chol_linv_batched"))
-    pms = cuda_ms(lambda: cuda_chol.chol_linv_plain(Tj))
+    # in turns: cooperative, one-block, cuSOLVER, cooperative, one-block,
+    # cuSOLVER, on the ladder level chosen above
+    def batch():
+        return cuda_chol.chol_linv_cuda(Tj, "chol_linv_batched")
+
+    def one():
+        return cuda_chol.chol_linv_cuda(Tj, one_block)
+
+    def cusolver():
+        return cuda_chol.chol_linv_plain(Tj)
+
+    turns = [(f, cuda_ms(f, iters=20)) for f in (batch, one, cusolver) * 2]
+    ms, pms = (statistics.mean(t for f, t in turns if f is g)
+               for g in (batch, cusolver))
+    G, C = cuda_chol.coop_grid(20, 256, dev)
+    say(2, f"K1 (20,256,256) ladder blocks, in turns: the cooperative kernel "
+           f"(G = {G} blocks, C = {C} chain blocks) "
+           f"{', '.join(f'{t:.4f}' for f, t in turns if f is batch)} ms, the "
+           f"one-block kernel "
+           f"{', '.join(f'{t:.4f}' for f, t in turns if f is one)} ms, "
+           f"cuSOLVER {', '.join(f'{t:.4f}' for f, t in turns if f is cusolver)}"
+           f" ms (the one-block kernel before: {K1_BATCH_BEFORE_MS} ms, "
+           f"PERF.md)")
+    check(ms < pms, f"K1 (20,256,256): the cooperative kernel {ms:.4f} ms is "
+                    f"not faster than cuSOLVER {pms:.4f} ms")
     bms, bby, _ = bound(4 * 3 * 20 * 256**2, flops=20 * 2 * 256**3 / 3)
     results["chol_linv_batched"].update(ms=ms, plain_ms=pms, bound_ms=bms,
                                         bound_by=bby, library_ms=pms)
@@ -276,7 +332,11 @@ def phase2_kernels(results):
           "K1 indefinite outputs not finite")
     check(torch.equal(L1[keep], L0[keep]) and torch.equal(Li1[keep], Li0[keep]),
           "K1 indefinite block changed the others")
-    say(2, "K1 indefinite block 3: ok=0, others bit-identical, all finite")
+    check(same_as_one_block(Sb, (L1, Li1, ok1)),
+          "K1 indefinite batch: the cooperative kernel differs from the "
+          "one-block kernel")
+    say(2, "K1 indefinite block 3: ok=0, others bit-identical, all finite; "
+           "bit for bit the one-block kernel's")
 
     # --- K1 gradient through the autograd.Function, kernel vs plain (CPU)
     for shape, fn in (((512, 512), cuda_chol.chol_linv),
@@ -384,8 +444,8 @@ def phase3_slice():
     the two devices must make the same choices there.
 
     The 512x512 leaves that the CUDA runs hand K1 (the diagonal blocks of
-    the p x p C factor) are kept, and the leaf kernel is held bit for bit,
-    ok flags included, against the one-block kernel on each."""
+    the p x p C factor) are kept, and the cooperative kernel is held bit
+    for bit, ok flags included, against the one-block kernel on each."""
     import torch
 
     from rpagp_torch.models import exact_gp
@@ -462,11 +522,11 @@ def phase3_slice():
     oks, same = [], 0
     for A in c_leaves:
         L, Li, ok = cuda_chol.chol_linv_cuda(A[None], "chol_linv")
-        L1, Li1, ok1 = cuda_chol.chol_linv_cuda(A[None], "chol_linv_batched")
+        L1, Li1, ok1 = cuda_chol.chol_linv_cuda(A[None], cuda_chol.ONE_BLOCK)
         oks.append((int(ok), int(ok1)))
         same += torch.equal(L, L1) and torch.equal(Li, Li1)
     say(3, f"{len(c_leaves)} C-factor leaves {tuple(c_leaves[0].shape)} of the "
-           f"CUDA grid_mll runs: ok flags leaf kernel "
+           f"CUDA grid_mll runs: ok flags cooperative kernel "
            f"{[a for a, _ in oks]}, one-block kernel {[b for _, b in oks]}; "
            f"bit for bit equal on {same}/{len(c_leaves)}")
     check(all(a == b for a, b in oks),
@@ -562,18 +622,16 @@ def phase4_main_path(results):
            f"(all {', '.join(f'{v:.2f}' for v in step_ms)}); host reads "
            f"{grid_solve.stats['host_reads'] / 6:.2f}/step; loss "
            f"{float(loss.detach()):.5f}")
-    busy, by = _device_ms(step, 3,
-                          ("chol_linv_leaf_kernel", "chol_linv_kernel"))
+    busy, by = _device_ms(step, 3, ("chol_linv_coop_kernel",))
     if busy == 0:
         say(4, "torch.profiler recorded no device time: the step's device "
                "breakdown is not measured")
         return
+    k1 = by["chol_linv_coop_kernel"]
     say(4, f"torch.profiler over 3 more steps: device busy {busy:.2f} ms/step "
-           f"(idle {100 * (1 - busy / med):.0f}% of the {med:.2f} ms step); K1 "
-           f"leaf kernel {by['chol_linv_leaf_kernel']:.2f} ms/step "
-           f"({100 * by['chol_linv_leaf_kernel'] / busy:.1f}% of device time), "
-           f"K1 one-block kernel (the ladder) {by['chol_linv_kernel']:.2f} "
-           f"ms/step")
+           f"(idle {100 * (1 - busy / med):.0f}% of the {med:.2f} ms step); K1's "
+           f"cooperative kernel (ten leaves and the ladder batch) {k1:.2f} "
+           f"ms/step ({100 * k1 / busy:.1f}% of device time)")
 
 
 def _gram_case(n, m, t, J, gen, dev):
@@ -600,11 +658,102 @@ def _gram_bound(n, m, t, J, backward=False):
                  flops=2 * n * m * (J + t), exps=n * m * J)
 
 
+def _sass_loops(text):
+    """The loops of one function's SASS (cuobjdump -sass): a list of
+    (first, last) instruction indices, one per backward branch, and the
+    opcodes in order."""
+    import re
+
+    ops, addr, labels, branches = [], {}, {}, []
+    pending = []
+    for line in text.splitlines():
+        lab = re.match(r"\s*(\.L_x_\d+):", line)
+        if lab:
+            pending.append(lab.group(1))
+            continue
+        ins = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if not ins:
+            continue
+        for name in pending:
+            labels[name] = len(ops)
+        pending = []
+        words = ins.group(2).split()
+        op = words[1] if words[0].startswith("@") else words[0]
+        addr[int(ins.group(1), 16)] = len(ops)
+        if op.startswith("BRA"):
+            tgt = re.search(r"`\((\.L_x_\d+)\)|0x([0-9a-f]+)", ins.group(2))
+            if tgt:
+                branches.append((len(ops), tgt.group(1) or int(tgt.group(2), 16)))
+        ops.append(op)
+    loops = []
+    for src, tgt in branches:
+        first = labels.get(tgt) if isinstance(tgt, str) else addr.get(tgt)
+        if first is not None and first <= src:
+            loops.append((first, src))
+    return loops, ops
+
+
+def k4_sass_mix(library, fn_key="gram_mvm_narrow_kernelILi0ELi12E"):
+    """The instruction mix of K4's inner loop from the built library's
+    SASS (cuobjdump -sass), for one instantiation (default: rbf at t = 11,
+    the training shape): the innermost loop that holds MUFU.EX2, the loop
+    over components. Returns a dict, or None where cuobjdump is missing or
+    no such loop is found."""
+    import collections
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    out = subprocess.run([tool, "-sass", library], capture_output=True,
+                         text=True, timeout=300).stdout
+    for chunk in re.split(r"\n\s+Function : ", out):
+        name = chunk.split("\n", 1)[0]
+        if fn_key not in name:
+            continue
+        loops, ops = _sass_loops(chunk)
+        with_ex2 = [lp for lp in loops
+                    if any(o.startswith("MUFU.EX2") for o in ops[lp[0]:lp[1] + 1])]
+        if not with_ex2:
+            return None
+        first, last = min(with_ex2, key=lambda lp: lp[1] - lp[0])
+        body = ops[first:last + 1]
+        mix = collections.Counter(o.split(".")[0] if not o.startswith("MUFU")
+                                  else o for o in body)
+        return {"function": name.strip(), "instructions": len(body),
+                "mufu_ex2": mix.get("MUFU.EX2", 0),
+                "mix": dict(mix.most_common())}
+    return None
+
+
+# K4's times before its redesign, by label: the first design (one 64-row
+# block per SM wave, accurate expf, the Gram recomputed per 32 columns of
+# V), PERF.md section 6, NVIDIA H100 80GB HBM3, 700.00 W
+K4_BEFORE_MS = {"train": "1.599-1.612", "posterior CG/Lanczos": "1.332-1.514",
+                "cross K*Q": "1.795-1.810"}
+
+
 def phase5_gram_kernels(results):
-    """K4 / K5 against their plain versions at the BBMM path's shapes."""
+    """K4 / K5 against their plain versions at the BBMM path's shapes;
+    first the instruction mix of K4's inner loop at the training shape."""
     import torch
 
+    from rpagp_torch.ops import _build
     from rpagp_torch.ops import cuda_gram as cg
+
+    mix = k4_sass_mix(_build.library_path())
+    if mix is None:
+        say(5, "K4's SASS: not read (no cuobjdump, or no loop with MUFU.EX2 "
+               "found)")
+    else:
+        per = mix["instructions"] / max(mix["mufu_ex2"], 1)
+        say(5, f"K4's SASS ({mix['function']}): the loop over components "
+               f"holds {mix['instructions']} instructions, {mix['mufu_ex2']} "
+               f"of them MUFU.EX2, {per:.2f} an exp ({mix['mix']}); the exp "
+               f"unit takes 8 issue cycles of a sub-partition per warp "
+               f"MUFU.EX2, so this loop alone is bound by the exp unit, not "
+               f"by issue")
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(5)
@@ -624,9 +773,13 @@ def phase5_gram_kernels(results):
         ms = cuda_ms(lambda: cg.gram_mvm_cuda(z1, z2, w, V, base))
         pms = cuda_ms(lambda: cg.gram_mvm_plain(z1, z2, w, V, base), iters=2)
         bms, bby, term = _gram_bound(rows, cols, t, J)
+        plan = cg.gram_mvm_plan(rows, cols, J, t, base, dev)
         line = (f"K4 {label} ({rows}, {cols}, J={J}, t={t}, {base}): rel "
-                f"{e:.2e}, repeats bit for bit; {ms:.3f} ms vs plain "
-                f"{pms:.3f} ms, bound {bms:.3f} ms ({term})")
+                f"{e:.2e}, repeats bit for bit; {ms:.4f} ms (grid G = "
+                f"{plan[0]}, {plan[1]} z2 chunks) vs plain {pms:.3f} ms, "
+                f"bound {bms:.3f} ms ({term})")
+        if label in K4_BEFORE_MS:
+            line += f"; the first design {K4_BEFORE_MS[label]} ms"
         if label == "train":
             results["gram_mvm"] = dict(max_abs_err=max_abs(out, outp), ms=ms,
                                        plain_ms=pms, bound_ms=bms,
@@ -872,8 +1025,8 @@ def main():
     phase5_gram_kernels(results)
     phase6_bbmm_mll()
     phase7_bbmm_main_path(results)
-    source = {"chol_linv": "rpagp_torch/csrc/chol_linv_leaf.cu",
-              "chol_linv_batched": "rpagp_torch/csrc/chol_linv.cu",
+    source = {"chol_linv": "rpagp_torch/csrc/chol_linv_coop.cu",
+              "chol_linv_batched": "rpagp_torch/csrc/chol_linv_coop.cu",
               "interp_transpose": "rpagp_torch/csrc/interp.cu",
               "interp_apply_sum": "rpagp_torch/csrc/interp.cu",
               "gram_mvm": "rpagp_torch/csrc/gram_mvm.cu",

@@ -1,12 +1,13 @@
-// K1, the batch: Cholesky factor AND inverse, (B, b, b) -> (L, Linv, ok),
-// one thread block per matrix.
+// K1's one-block kernel: Cholesky factor AND inverse, (B, b, b) ->
+// (L, Linv, ok), one thread block per matrix.
 //
-// Replaces rpagp/ops/pallas_chol.py `_fused_panel_kernel`
-// (chol_linv_batched_fused, J blocks; pallas_call at :471). On the TPU the
-// batched form needed its own kernel because Pallas grid programs run one
-// after another on one core. The single-matrix entry point (`_panel_kernel`
-// / `_leaf_kernel`) is chol_linv_leaf.cu; this kernel still takes a
-// (1, b, b) input, which is how the two are held against each other.
+// The first port of rpagp/ops/pallas_chol.py's kernels (`_panel_kernel`,
+// `_leaf_kernel`, `_fused_panel_kernel`). The path no longer launches it:
+// both entry points run chol_linv_coop.cu, which spreads this kernel's
+// panel schedule over the card's SMs and gives every element the same
+// operations in the same order. This kernel stays as that one's oracle:
+// the card tests and chip_smoke.py hold the two bit for bit against each
+// other (cuda_chol.chol_linv_cuda(A, "chol_linv_oneblock")).
 //
 // Algorithm: right-looking blocked elimination in 32-wide panels. The L
 // output is the working matrix (the in-place layout of
@@ -28,10 +29,7 @@
 // What bounds it on the H100: one SM per matrix, with the ~b^3/3 FMAs
 // read and written through L2-resident global memory and two block-wide
 // barriers per tile. At B = 20 (the jitter ladder's 256x256 Toeplitz
-// blocks) 20 of 132 SMs work. The B = 1 entry point (the 512x512
-// diagonal leaf of the p x p blocked factor) has a kernel of its own,
-// chol_linv_leaf.cu, which spreads the same panel schedule over the
-// card's SMs with grid barriers; this kernel serves the batch.
+// blocks) 20 of 132 SMs work.
 
 #include <cuda_runtime.h>
 

@@ -1,5 +1,5 @@
 // K1's shared 32x32 tile routines, for the one-block kernel (chol_linv.cu)
-// and the grid-synchronised leaf kernel (chol_linv_leaf.cu): the tile
+// and the grid-synchronised kernel (chol_linv_coop.cu): the tile
 // products of both run through these, in the same order. Every routine is
 // called by all NT threads of a block.
 
@@ -14,7 +14,7 @@ constexpr int NT = 256;  // threads per block: 4 outputs of a 32x32 tile each
 
 typedef float Tile[NB][NB + 1];
 
-// s = src[row0:row0+32, col0:col0+32]. The leaf kernel reads through L2
+// s = src[row0:row0+32, col0:col0+32]. The coop kernel reads through L2
 // only (kCG): other blocks rewrite the tiles between its grid barriers.
 template <bool kCG = false>
 __device__ __forceinline__ void load_tile(Tile s, const float* src, int ld,

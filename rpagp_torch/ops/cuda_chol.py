@@ -2,25 +2,26 @@
 
 Port of rpagp/ops/pallas_chol.py. The TPU package has three Pallas
 kernels (`_leaf_kernel`, `_panel_kernel` behind `chol_linv`, and
-`_fused_panel_kernel` behind `chol_linv_batched_fused`). Here K1 is two
-CUDA kernels, one per entry point:
+`_fused_panel_kernel` behind `chol_linv_batched_fused`). Here both entry
+points launch one CUDA kernel, csrc/chol_linv_coop.cu: one cooperative
+launch of G blocks over the card's SMs, with grid barriers between the
+phases of each panel, for B >= 1 matrices; each launch has its own
+counter:
 
   chol_linv(A)          (b, b)    -> L, Linv (b, b), ok ()   the 512 leaf
-      csrc/chol_linv_leaf.cu: one matrix, one cooperative launch of G
-      blocks over the card's SMs, with grid barriers between phases
   chol_linv_batched(T)  (J, b, b) -> L, Linv (J, b, b), ok (J,)  the ladder
-      csrc/chol_linv.cu: one thread block per matrix
 
-Each element goes through the same operations in the same order in
-both, so on one matrix they agree bit for bit;
-`chol_linv_cuda(A, "chol_linv_batched")` runs the one-block kernel on a
-(1, b, b) input.
+The first port, csrc/chol_linv.cu (one thread block per matrix), is no
+longer on the path: `chol_linv_cuda(A, "chol_linv_oneblock")` runs it,
+uncounted, as the oracle of the cooperative kernel. Each element goes
+through the same operations in the same order in both, so they agree bit
+for bit on every matrix.
 
 Contract (both): A symmetric, f32. L = chol(A) exactly lower-triangular,
 Linv = L^{-1}, ok = 1.0 / 0.0. On a non-positive pivot every output stays
-FINITE and ok = 0 (the blocked_cholesky_safe contract: a zero cotangent
-times a finite primal stays zero, which is what makes the factor-first
-ladders sound).
+FINITE and ok = 0 for that matrix alone (the blocked_cholesky_safe
+contract: a zero cotangent times a finite primal stays zero, which is
+what makes the factor-first ladders sound).
 
 Gradient: the closed-form GEMM-only VJP of pallas_chol._chol_linv_bwd /
 _fused_bwd, as plain torch.matmul. It returns a SYMMETRIC cotangent, so
@@ -41,12 +42,13 @@ import torch
 
 from . import _build
 
-# launches of the CUDA kernel, per entry point
+# launches of the cooperative kernel, per entry point
 launches = {"chol_linv": 0, "chol_linv_batched": 0}
+ONE_BLOCK = "chol_linv_oneblock"  # the oracle kernel's name, not counted
 
 _ALIGN = 32  # the kernels' panel width; other sizes are padded with I
 
-_leaf_grids = {}  # (device index, b) -> G of the leaf kernel's launch
+_coop_grids = {}  # (device index, B, b) -> (G, C) of the cooperative launch
 
 
 def chol_linv_plain(A):
@@ -60,34 +62,38 @@ def chol_linv_plain(A):
     return L, Linv, ok.to(A.dtype)
 
 
-def leaf_grid(b: int, device) -> int:
-    """G, the blocks of the leaf kernel's cooperative launch at size b (a
-    multiple of 32) on a CUDA device: the blocks that fit the card at
-    once, capped at 1 + the most tiles one of its phases deals out."""
+def coop_grid(B: int, b: int, device) -> tuple[int, int]:
+    """(G, C) of the cooperative kernel's launch on B matrices of size b
+    (a multiple of 32) on a CUDA device: G blocks, those that fit the card
+    at once capped at C + the most items one of its phases deals out, of
+    which C carry the matrices' diagonal chains."""
     device = torch.device(device)
     key = (device.index if device.index is not None
-           else torch.cuda.current_device(), b)
-    if key not in _leaf_grids:
-        G = ctypes.c_int(0)
+           else torch.cuda.current_device(), B, b)
+    if key not in _coop_grids:
+        G, C = ctypes.c_int(0), ctypes.c_int(0)
         with torch.cuda.device(key[0]):
-            err = _build.lib().rpagp_chol_linv_leaf_grid(
-                b, ctypes.addressof(G))
-        _build.check(err, "chol_linv_leaf occupancy query")
-        _leaf_grids[key] = G.value
-    return _leaf_grids[key]
+            err = _build.lib().rpagp_chol_linv_coop_grid(
+                B, b, ctypes.addressof(G), ctypes.addressof(C))
+        _build.check(err, "chol_linv_coop occupancy query")
+        _coop_grids[key] = (G.value, C.value)
+    return _coop_grids[key]
 
 
 def chol_linv_cuda(A, name: str):
-    """Launch K1 on a (B, b, b) f32 contiguous CUDA batch: the leaf kernel
-    for name "chol_linv" (B = 1), the one-block kernel for
-    "chol_linv_batched". A size b that is not a multiple of 32 is
-    embedded as blockdiag(A, I), whose factor and inverse are
-    blockdiag(., I), and sliced back."""
-    if A.ndim != 3 or A.shape[1] != A.shape[2] or A.shape[1] == 0:
+    """Launch K1 on a (B, b, b) f32 contiguous CUDA batch: the cooperative
+    kernel for the entry points' names "chol_linv" (B = 1) and
+    "chol_linv_batched", the one-block kernel for ONE_BLOCK. A size b
+    that is not a multiple of 32 is embedded as blockdiag(A, I), whose
+    factor and inverse are blockdiag(., I), and sliced back."""
+    if A.ndim != 3 or A.shape[1] != A.shape[2] or A.shape[1] == 0 \
+            or A.shape[0] == 0:
         raise ValueError(f"chol_linv_cuda expects (B, b, b), got {tuple(A.shape)}")
+    if name not in (*launches, ONE_BLOCK):
+        raise ValueError(f"chol_linv_cuda: unknown entry point {name!r}")
     if name == "chol_linv" and A.shape[0] != 1:
-        raise ValueError(f"the leaf kernel factors one matrix, got a batch "
-                         f"of {A.shape[0]}")
+        raise ValueError(f"chol_linv factors one matrix, got a batch of "
+                         f"{A.shape[0]}")
     if A.device.type != "cuda" or A.dtype != torch.float32:
         raise TypeError(f"chol_linv_cuda needs a float32 CUDA tensor, got "
                         f"{A.dtype} on {A.device}")
@@ -106,13 +112,14 @@ def chol_linv_cuda(A, name: str):
     lib = _build.lib()
     args = (A.data_ptr(), L.data_ptr(), Linv.data_ptr(), ok.data_ptr())
     stream = _build.stream_ptr(A.device)
-    if name == "chol_linv":
-        err = lib.rpagp_chol_linv_leaf(*args, bp, leaf_grid(bp, A.device),
-                                       stream)
-    else:
+    if name == ONE_BLOCK:
         err = lib.rpagp_chol_linv(*args, B, bp, stream)
+    else:
+        err = lib.rpagp_chol_linv_coop(*args, B, bp,
+                                       *coop_grid(B, bp, A.device), stream)
     _build.check(err, f"{name} kernel")
-    launches[name] += 1
+    if name in launches:
+        launches[name] += 1
     if bp != b:
         L, Linv = L[:, :b, :b].contiguous(), Linv[:, :b, :b].contiguous()
     return L, Linv, ok

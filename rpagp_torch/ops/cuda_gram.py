@@ -19,11 +19,16 @@ and the value sides swapped). A CPU tensor takes the plain versions
 launches the kernels; anything else raises.
 
 The TPU kernel's `prec` and `bf16_exp` options are matrix-unit modes of
-the TPU; here everything is f32 with the accurate exp.
+the TPU; here everything is f32. K4 takes its exponentials on the exp
+unit (one 2^x of prescaled coordinates, csrc/gram_mvm.cu), K5 with the
+accurate expf. K4's launch is planned per shape (`gram_mvm_plan`): a
+persistent grid of G blocks over (row tile, z2 chunk) items, whose
+partial sums a second kernel adds in chunk order.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -37,8 +42,11 @@ launches = {"gram_mvm": 0, "gram_mvm_bwd": 0}
 BASES = ("rbf", "matern12", "matern32", "matern52")
 J_MAX = 64  # csrc/gram_mvm.cu J_MAX: components per launch
 _ROWS_PER_BLOCK = 64  # csrc/gram_mvm.cu TI (K5 writes one dw partial each)
-_TC_TILES = (1, 16, 32)  # K4 template widths of the V tile
+TILE = 64  # csrc/gram_mvm.cu FT: K4's rows and z2 columns per Gram tile
+MAX_CHUNKS = 32  # K4: the most z2 chunks (partial-sum slots) of one call
 _PLAIN_ELEMS = 1 << 25  # plain versions: (rows, m, J) elements per block
+
+_fwd_grids = {}  # (device index, J, t, base) -> (G, slabs) of K4's grid
 
 _SQRT3 = math.sqrt(3.0)
 _SQRT5 = math.sqrt(5.0)
@@ -123,6 +131,41 @@ def _component_chunks(z1, z2, w):
                w[j0:j1])
 
 
+def z2_chunks(units: int, tiles: int, G: int) -> int:
+    """K4's number of z2 chunks S: the fewest (at most `tiles`, the z2
+    tiles of 64, and MAX_CHUNKS) for which the units * S work items (row
+    tile and column slab, z2 chunk) fill at least 95% of the ceil(items /
+    G) rounds of the persistent grid's G blocks; failing that, the fullest
+    rounds."""
+    best, best_fill = 1, 0.0
+    for S in range(1, max(1, min(tiles, MAX_CHUNKS)) + 1):
+        items = units * S
+        fill = items / (G * -(-items // G))
+        if fill >= 0.95:
+            return S
+        if fill > best_fill:
+            best, best_fill = S, fill
+    return best
+
+
+def gram_mvm_plan(n: int, m: int, J: int, t: int, base: str, device):
+    """(G, S) of K4 on a CUDA device: its persistent grid (the blocks the
+    card holds at once) and its number of z2 chunks."""
+    device = torch.device(device)
+    key = (device.index if device.index is not None
+           else torch.cuda.current_device(), min(J, J_MAX), t, base)
+    if key not in _fwd_grids:
+        G, slabs = ctypes.c_int(0), ctypes.c_int(0)
+        with torch.cuda.device(key[0]):
+            err = _build.lib().rpagp_gram_mvm_grid(
+                key[1], t, BASES.index(base), ctypes.addressof(G),
+                ctypes.addressof(slabs))
+        _build.check(err, "gram_mvm occupancy query")
+        _fwd_grids[key] = (G.value, slabs.value)
+    G, slabs = _fwd_grids[key]
+    return G, z2_chunks(-(-n // TILE) * slabs, -(-m // TILE), G)
+
+
 def gram_mvm_cuda(z1, z2, w, V, base: str = "rbf"):
     _check_cuda("gram_mvm", base, z1, z2, w, V)
     n = z1.shape[0]
@@ -133,15 +176,23 @@ def gram_mvm_cuda(z1, z2, w, V, base: str = "rbf"):
     out = torch.empty(n, t, dtype=V.dtype, device=V.device)
     if n == 0 or t == 0:
         return out
-    tc_tile = next(c for c in _TC_TILES if c >= min(t, _TC_TILES[-1]))
+    if m == 0:
+        return out.zero_()
+    G, S = gram_mvm_plan(n, m, z1.shape[1], t, base, V.device)
+    scratch = (torch.empty(S, n, t, dtype=V.dtype, device=V.device)
+               if S > 1 else out)
+    # the coordinates, transposed and prescaled by the kernel's first pass
+    rows = -(-n // TILE) * TILE + -(-m // TILE) * TILE
+    coords = torch.empty(min(z1.shape[1], J_MAX) * rows, dtype=V.dtype,
+                         device=V.device)
     part = out
     for j0, j1, c1, c2, cw in _component_chunks(z1, z2, w):
         if j0 > 0:
             part = torch.empty_like(out)
         err = _build.lib().rpagp_gram_mvm(
             c1.data_ptr(), c2.data_ptr(), cw.data_ptr(), V.data_ptr(),
-            part.data_ptr(), n, m, j1 - j0, t, BASES.index(base), tc_tile,
-            _build.stream_ptr(V.device))
+            part.data_ptr(), scratch.data_ptr(), coords.data_ptr(), n, m,
+            j1 - j0, t, BASES.index(base), S, G, _build.stream_ptr(V.device))
         _build.check(err, "gram_mvm kernel")
         launches["gram_mvm"] += 1
         if j0 > 0:

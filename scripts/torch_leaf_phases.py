@@ -1,14 +1,17 @@
-"""Where the time of K1's leaf kernel goes, phase by phase, on a CUDA card.
+"""Where the time of K1's cooperative kernel goes, phase by phase, on a
+CUDA card: the 512 leaf (B = 1) by default, the ladder batch with
+--B 20 --b 256.
 
-Builds an instrumented copy of rpagp_torch/csrc/chol_linv_leaf.cu under
+Builds an instrumented copy of rpagp_torch/csrc/chol_linv_coop.cu under
 rpagp_torch/_build/phases/ (which git ignores): block 0 stamps
 %globaltimer as each phase starts, every block as its work in the phase
 ends (the latest kept), and block 0's thread 0 reads clock64 between the
-steps of the diagonal chain. Runs it on a random SPD (b, b) matrix, holds
-its outputs bit for bit against the uninstrumented kernel, and prints the
-phases' work and barrier times and the chain's cycles per step.
+steps of its diagonal chain (matrix 0's). Runs it on B random SPD (b, b)
+matrices, holds its outputs bit for bit against the uninstrumented
+kernel, and prints the phases' work and barrier times and the chain's
+cycles per step.
 
-    python scripts/torch_leaf_phases.py [--b 512] [--seed 0]
+    python scripts/torch_leaf_phases.py [--B 1] [--b 512] [--seed 0]
 
 The stamps cost a block barrier and an atomic per phase: the kernel time
 it prints beside the uninstrumented one shows how much.
@@ -39,7 +42,8 @@ __device__ __forceinline__ unsigned long long gtime() {
 #define STAMP_START(ph) if (g == 0 && tid == 0) g_start[ph] = gtime();
 #define STAMP_END(ph) __syncthreads(); \
   if (tid == 0) atomicMax(&g_end[ph], gtime());
-#define CLK(k, s) if (threadIdx.x == 0) g_clk[k][s] = clock64();
+#define CLK(k, s) if (threadIdx.x == 0 && blockIdx.x == 0) \
+  g_clk[k][s] = clock64();
 extern "C" int leaf_stamps(unsigned long long* s, unsigned long long* e,
                            long long* c) {
   cudaMemcpyFromSymbol(s, g_start, sizeof(g_start));
@@ -59,22 +63,24 @@ namespace {
 # start, 3 inverse done (warp).
 PATCH = [
     ("namespace {\n", STAMPS),
-    ("                                            int o) {\n"
+    ("                                            float* L, int b, int o) {\n"
      "  const int tid = threadIdx.x;\n",
-     "                                            int o) {\n"
+     "                                            float* L, int b, int o) {\n"
      "  const int tid = threadIdx.x;\n  CLK(o / NB, 1)\n"),
-    ("    if (i == 0 && !all) *ok = 0;\n",
-     "    if (i == 0 && !all) *ok = 0;\n    CLK(o / NB, 2)\n"),
-    ("                           a[4 * m + 3]);\n  }\n  __syncthreads();\n}",
+    ("#pragma unroll\n    for (int k = 0; k < NB; ++k) sDT[k][i] = a[k];\n",
+     "    CLK(o / NB, 2)\n#pragma unroll\n"
+     "    for (int k = 0; k < NB; ++k) sDT[k][i] = a[k];\n"),
+    ("                           a[4 * m + 3]);\n  }\n  __syncthreads();\n"
+     "  return all;\n}",
      "                           a[4 * m + 3]);\n  }\n  __syncthreads();\n"
-     "  CLK(o / NB, 4)\n}"),
+     "  CLK(o / NB, 4)\n  return all;\n}"),
     ("      Linv[(size_t)(o + r) * b + o + c] = y[r];\n    }\n  }\n",
      "      Linv[(size_t)(o + r) * b + o + c] = y[r];\n    }\n  }\n"
      "  CLK(o / NB, 3)\n"),
     ("  const size_t bb = (size_t)b * b;\n",
      "  const size_t bb = (size_t)b * b;\n  STAMP_START(0)\n"),
-    ("    invert_tile(sDT, sDinv, Linv, b, 0);\n  }\n  grid.sync();\n",
-     "    invert_tile(sDT, sDinv, Linv, b, 0);\n  }\n  STAMP_END(0)\n"
+    ("    dt_at = dinv_at = mt * npan;\n  }\n  grid.sync();\n",
+     "    dt_at = dinv_at = mt * npan;\n  }\n  STAMP_END(0)\n"
      "  grid.sync();\n"),
     ("    const int o = kp * NB, T = npan - 1 - kp;\n",
      "    const int o = kp * NB, T = npan - 1 - kp;\n"
@@ -90,15 +96,15 @@ PATCH = [
      "      __syncthreads();\n",
      "      for (int u = 0; u < 4; ++u) sB[r][c0 + 8 * u] -= acc[u];\n"
      "      __syncthreads();\n      CLK(kp + 1, 0)\n"),
-    ("      factor_tile(sB, sDT, sCol, &sOk, L, b, t1);\n    }\n"
-     "    grid.sync();\n",
-     "      factor_tile(sB, sDT, sCol, &sOk, L, b, t1);\n    }\n"
+    ("      dt_at = mt * npan + kp + 1;\n    }\n    grid.sync();\n",
+     "      dt_at = mt * npan + kp + 1;\n    }\n"
      "    STAMP_END(1 + 2 * kp)\n    grid.sync();\n"
      "    STAMP_START(2 + 2 * kp)\n"),
-    ("    if (g == 0) invert_tile(sDT, sDinv, Linv, b, (kp + 1) * NB);\n"
-     "    grid.sync();\n",
-     "    if (g == 0) {\n      CLK(kp + 1, 6)\n"
-     "      invert_tile(sDT, sDinv, Linv, b, (kp + 1) * NB);\n    }\n"
+    ("      invert_tile(sDT, sDinv, Linv_all + mt * bb, b, (kp + 1) * NB);\n"
+     "      dinv_at = at;\n    }\n    grid.sync();\n",
+     "      CLK(kp + 1, 6)\n"
+     "      invert_tile(sDT, sDinv, Linv_all + mt * bb, b, (kp + 1) * NB);\n"
+     "      dinv_at = at;\n    }\n"
      "    STAMP_END(2 + 2 * kp)\n    grid.sync();\n"),
 ]
 
@@ -106,25 +112,25 @@ PATCH = [
 def build():
     from rpagp_torch.ops import _build
 
-    with open(os.path.join(CSRC, "chol_linv_leaf.cu")) as f:
+    with open(os.path.join(CSRC, "chol_linv_coop.cu")) as f:
         src = f.read()
     for anchor, new in PATCH:
         if src.count(anchor) != 1:
-            raise RuntimeError(f"anchor not found once in chol_linv_leaf.cu:"
+            raise RuntimeError(f"anchor not found once in chol_linv_coop.cu:"
                                f"\n{anchor}")
         src = src.replace(anchor, new)
     os.makedirs(OUT, exist_ok=True)
-    cu = os.path.join(OUT, "chol_linv_leaf_phases.cu")
+    cu = os.path.join(OUT, "chol_linv_coop_phases.cu")
     with open(cu, "w") as f:
         f.write(src)
-    so = os.path.join(OUT, "libleaf_phases.so")
+    so = os.path.join(OUT, "libcoop_phases.so")
     subprocess.run([_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
                     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                     "-I", CSRC, "-o", so, cu], check=True)
     lib = ctypes.CDLL(so)
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.rpagp_chol_linv_leaf.argtypes = [P, P, P, P, I, I, P]
-    lib.rpagp_chol_linv_leaf_grid.argtypes = [I, P]
+    lib.rpagp_chol_linv_coop.argtypes = [P, P, P, P, I, I, I, I, P]
+    lib.rpagp_chol_linv_coop_grid.argtypes = [I, I, P, P]
     lib.leaf_stamps.argtypes = [P, P, P]
     return lib
 
@@ -136,10 +142,11 @@ def main():
     from rpagp_torch.ops import _build, cuda_chol
 
     ap = argparse.ArgumentParser()
+    ap.add_argument("--B", type=int, default=1)
     ap.add_argument("--b", type=int, default=512)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
-    b = args.b
+    B, b = args.B, args.b
     if not torch.cuda.is_available() or b % 32:
         sys.exit("needs a CUDA device and b a multiple of 32")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -149,28 +156,31 @@ def main():
     lib = build()
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(args.seed)
-    X = torch.randn(b, b, generator=gen)
-    A = (X @ X.T / b + 0.5 * torch.eye(b)).to(dev)[None].contiguous()
+    X = torch.randn(B, b, b, generator=gen)
+    A = (X @ X.mT / b + 0.5 * torch.eye(b)).to(dev).contiguous()
     L, Linv, ok = (torch.empty_like(A), torch.empty_like(A),
-                   torch.empty(1, device=dev))
-    G = ctypes.c_int(0)
-    _build.check(lib.rpagp_chol_linv_leaf_grid(b, ctypes.addressof(G)),
+                   torch.empty(B, device=dev))
+    G, C = ctypes.c_int(0), ctypes.c_int(0)
+    _build.check(lib.rpagp_chol_linv_coop_grid(B, b, ctypes.addressof(G),
+                                               ctypes.addressof(C)),
                  "occupancy query")
     s = (ctypes.c_ulonglong * 64)()
     e = (ctypes.c_ulonglong * 64)()
     c = (ctypes.c_longlong * 512)()
 
     def launch():
-        _build.check(lib.rpagp_chol_linv_leaf(
-            A.data_ptr(), L.data_ptr(), Linv.data_ptr(), ok.data_ptr(), b,
-            G.value, _build.stream_ptr(dev)), "instrumented leaf kernel")
+        _build.check(lib.rpagp_chol_linv_coop(
+            A.data_ptr(), L.data_ptr(), Linv.data_ptr(), ok.data_ptr(), B, b,
+            G.value, C.value, _build.stream_ptr(dev)),
+            "instrumented K1 kernel")
 
     for _ in range(5):  # the last run's stamps are read
         launch()
         torch.cuda.synchronize()
         lib.leaf_stamps(ctypes.addressof(s), ctypes.addressof(e),
                         ctypes.addressof(c))
-    ref = cuda_chol.chol_linv_cuda(A, "chol_linv")
+    name = "chol_linv" if B == 1 else "chol_linv_batched"
+    ref = cuda_chol.chol_linv_cuda(A, name)
     torch.cuda.synchronize()
     same = all(torch.equal(x, y) for x, y in zip((L, Linv, ok), ref))
 
@@ -186,10 +196,10 @@ def main():
         return ev[0].elapsed_time(ev[1]) / 20
 
     t_inst = ms(launch)
-    t_leaf = ms(lambda: cuda_chol.chol_linv_cuda(A, "chol_linv"))
-    print(f"b = {b}, G = {G.value} blocks; instrumented {t_inst:.4f} ms, "
-          f"uninstrumented {t_leaf:.4f} ms; outputs bit for bit equal: "
-          f"{same}")
+    t_ref = ms(lambda: cuda_chol.chol_linv_cuda(A, name))
+    print(f"B = {B}, b = {b}, G = {G.value} blocks, C = {C.value} chain "
+          f"blocks; instrumented {t_inst:.4f} ms, uninstrumented "
+          f"{t_ref:.4f} ms; outputs bit for bit equal: {same}")
 
     S, E = np.array(s[:], np.int64), np.array(e[:], np.int64)
     C = np.array(c[:], np.int64).reshape(64, 8)
@@ -209,7 +219,7 @@ def main():
              "factor (warp)": (1, 2), "factor written": (2, 4),
              "inverse (warp, phase B)": (6, 3)}
     panels = range(2, npan - 1)  # past the first panels' cold caches
-    print("block 0's chain, median cycles per panel: " + "; ".join(
+    print("block 0's chain (matrix 0), median cycles per panel: " + "; ".join(
         f"{k} {statistics.median(C[p, j] - C[p, i] for p in panels):.0f}"
         for k, (i, j) in steps.items()))
     sys.exit(0 if same else 1)

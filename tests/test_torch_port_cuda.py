@@ -57,20 +57,104 @@ def test_chol_linv_indefinite_block(cuda_device):
     assert bool(torch.isfinite(L).all() and torch.isfinite(Linv).all())
 
 
-def _leaf(A):
-    """The leaf kernel on one (b, b) matrix, and the one-block kernel on
-    the same input as a (1, b, b) batch."""
-    leaf = cuda_chol.chol_linv_cuda(A[None].contiguous(), "chol_linv")
-    one = cuda_chol.chol_linv_cuda(A[None].contiguous(), "chol_linv_batched")
+def _coop_and_one_block(T, name="chol_linv_batched"):
+    """The cooperative kernel (through entry point `name`) and the
+    one-block kernel on the same (B, b, b) batch."""
+    T = T.contiguous()
+    before = dict(cuda_chol.launches)
+    coop = cuda_chol.chol_linv_cuda(T, name)
+    one = cuda_chol.chol_linv_cuda(T, cuda_chol.ONE_BLOCK)
     torch.cuda.synchronize()
-    return leaf, one
+    assert cuda_chol.launches[name] == before[name] + 1  # the oracle: uncounted
+    assert sum(cuda_chol.launches.values()) == sum(before.values()) + 1
+    return coop, one
+
+
+def _bit_equal(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _leaf(A):
+    """The cooperative kernel through the leaf's entry point on one (b, b)
+    matrix, and the one-block kernel on the same input."""
+    return _coop_and_one_block(A[None], "chol_linv")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,b", [(20, 256), (3, 100), (65, 64), (200, 64)])
+def test_chol_linv_batch_equals_one_block_kernel(cuda_device, B, b):
+    """The cooperative kernel on a batch against the one-block kernel, bit
+    for bit on every matrix: the ladder's (20, 256, 256); b = 100 through
+    the identity-tail pad to 128; J = 65 at b = 64 (65 chain blocks); and
+    200 matrices, more than half the blocks the card holds, so that a
+    chain block carries several matrices in turn. A repeat is bit for bit
+    the same."""
+    T = torch.from_numpy(np.stack([_spd(b, seed=B + s) for s in range(B)]))
+    T = T.to(cuda_device)
+    (L, Linv, ok), one = _coop_and_one_block(T)
+    assert bool((ok == 1).all())
+    assert _bit_equal((L, Linv, ok), one)
+    assert _bit_equal((L, Linv, ok),
+                      cuda_chol.chol_linv_cuda(T, "chol_linv_batched"))
+    G, C = cuda_chol.coop_grid(B, -(-b // 32) * 32, cuda_device)
+    assert 1 <= C <= min(B, G)
+
+
+@pytest.mark.cuda
+def test_chol_linv_batch_on_the_ladder_blocks(cuda_device):
+    """The flagship's (20, 256, 256) RBF Toeplitz blocks at the initial
+    lengthscale (a grid built from 32,768 random 11-d points), at every
+    jitter level of grid_solve's ladder: the cooperative kernel equals the
+    one-block kernel bit for bit, ok flags included, even where the base
+    levels fail some blocks."""
+    import os
+
+    from rpagp_torch.models import exact_gp
+    from rpagp_torch.ops import grid_solve, ski
+    from rpagp_torch.utils.config import load_spec
+
+    spec = load_spec(os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "specs",
+        "rp_ski_houseelectric_j20.json")).model
+    gen = torch.Generator().manual_seed(1)
+    params, buffers = exact_gp.init_model(spec, 11, generator=gen,
+                                          device=cuda_device)
+    x = torch.randn(32768, 11, generator=gen).to(cuda_device)
+    state = ski.build_ski(spec.kernel, params["kernel"], buffers["kernel"], x,
+                          spec.kernel.grid_size)
+    T = grid_solve._toeplitz_blocks(spec.kernel, params["kernel"], state)
+    eps0 = spec.grid_jitter * T[:, 0, 0]
+    eye = torch.eye(T.shape[-1], device=cuda_device)
+    assert T.shape == (20, 256, 256)
+    for mult in grid_solve._LADDER:
+        coop, one = _coop_and_one_block(T + (mult * eps0)[:, None, None] * eye)
+        assert _bit_equal(coop, one), f"jitter x{mult}"
+
+
+@pytest.mark.cuda
+def test_chol_linv_batch_indefinite_block_leaves_the_others(cuda_device):
+    """Block 3 of the ladder-shaped batch indefinite: ok = 0 for it alone,
+    every output finite, the other 19 matrices bit for bit what they are
+    in the SPD batch, and all 20 bit for bit the one-block kernel's."""
+    T = torch.from_numpy(np.stack([_spd(256, seed=s) for s in range(20)]))
+    T = T.to(cuda_device)
+    Tb = T.clone()
+    Tb[3] -= 10.0 * torch.eye(256, device=cuda_device)
+    (L0, Linv0, _), _ = _coop_and_one_block(T)
+    (L, Linv, ok), one = _coop_and_one_block(Tb)
+    keep = torch.arange(20, device=cuda_device) != 3
+    assert float(ok[3]) == 0.0 and bool((ok[keep] == 1).all())
+    assert bool(torch.isfinite(L).all() and torch.isfinite(Linv).all())
+    assert torch.equal(L[keep], L0[keep]) and torch.equal(Linv[keep],
+                                                          Linv0[keep])
+    assert _bit_equal((L, Linv, ok), one)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b", [512, 256, 100, 32])
 def test_chol_linv_leaf_matches_plain(cuda_device, b):
-    """The multi-SM leaf kernel against cuSOLVER; b=100 goes through the
-    identity-tail pad to 128, b=32 is one panel (one block)."""
+    """The cooperative kernel on one matrix against cuSOLVER; b=100 goes
+    through the identity-tail pad to 128, b=32 is one panel (one block)."""
     A = torch.from_numpy(_spd(b, seed=b)).to(cuda_device)
     before = cuda_chol.launches["chol_linv"]
     L, Linv, ok = cuda_chol.chol_linv_cuda(A[None].contiguous(), "chol_linv")
@@ -81,13 +165,14 @@ def test_chol_linv_leaf_matches_plain(cuda_device, b):
     assert _rel(L, Lp) <= 1e-5
     assert _rel(Linv, Linvp) <= 1e-5
     assert float(torch.max(torch.abs(torch.triu(L, 1)))) == 0.0
-    assert 1 <= cuda_chol.leaf_grid(-(-b // 32) * 32, cuda_device)
+    assert cuda_chol.coop_grid(1, -(-b // 32) * 32, cuda_device)[1] == 1
 
 
 @pytest.mark.cuda
 def test_chol_linv_leaf_equals_one_block_kernel(cuda_device):
-    """Both kernels run the same per-element arithmetic in the same order:
-    at (1, 512, 512) they agree bit for bit, and a second leaf launch
+    """The cooperative kernel through the leaf's entry point and the
+    one-block kernel run the same per-element arithmetic in the same
+    order: at (1, 512, 512) they agree bit for bit, and a second launch
     repeats the first bit for bit."""
     A = torch.from_numpy(_spd(512, seed=3)).to(cuda_device)
     (L, Linv, ok), (L1, Linv1, ok1) = _leaf(A)
@@ -103,7 +188,8 @@ def test_chol_linv_leaf_equals_one_block_kernel(cuda_device):
 @pytest.mark.parametrize("panel", [0, 7, 15])
 def test_chol_linv_leaf_indefinite(cuda_device, panel):
     """A pivot fails in the given 32-wide panel of a 512 matrix: ok = 0,
-    every output finite, and the one-block kernel's outputs bit for bit."""
+    every output finite, and the one-block kernel's outputs bit for bit
+    (through the leaf's entry point)."""
     A = _spd(512, seed=panel)
     s = 32 * panel + 5
     A[s:, s:] -= 10.0 * np.eye(512 - s, dtype=np.float32)
@@ -116,8 +202,9 @@ def test_chol_linv_leaf_indefinite(cuda_device, panel):
 
 @pytest.mark.cuda
 def test_chol_linv_leaf_gradient_matches_cpu(cuda_device):
-    """The closed-form VJP through cuda_chol.chol_linv: leaf kernel on the
-    card against cuSOLVER's replacement, LAPACK, on the CPU."""
+    """The closed-form VJP through cuda_chol.chol_linv: the cooperative
+    kernel on the card against cuSOLVER's replacement, LAPACK, on the
+    CPU."""
     A0 = torch.from_numpy(_spd(512, seed=4))
     rng = np.random.default_rng(5)
     R1, R2 = (torch.from_numpy(rng.standard_normal((512, 512)).astype(
@@ -139,9 +226,9 @@ def test_chol_linv_leaf_refused_launch_raises(cuda_device):
 
     A = torch.eye(64, device=cuda_device)
     L, Linv, ok = (torch.empty_like(A) for _ in range(3))
-    err = _build.lib().rpagp_chol_linv_leaf(
-        A.data_ptr(), L.data_ptr(), Linv.data_ptr(), ok.data_ptr(), 64,
-        1 << 20, _build.stream_ptr(A.device))
+    err = _build.lib().rpagp_chol_linv_coop(
+        A.data_ptr(), L.data_ptr(), Linv.data_ptr(), ok.data_ptr(), 1, 64,
+        1 << 20, 1, _build.stream_ptr(A.device))
     with pytest.raises(RuntimeError,
                        match="cudaErrorCooperativeLaunchTooLarge"):
         _build.check(err, "chol_linv kernel")
@@ -180,11 +267,12 @@ def _gram_case(n, m, t, J, seed, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("base", cuda_gram.BASES)
-@pytest.mark.parametrize("t", [1, 11, 40])
+@pytest.mark.parametrize("t", [1, 11, 40, 256])
 def test_gram_mvm_matches_plain(cuda_device, base, t):
     """K4 and K5 against their plain versions on the card; ragged n, m
-    (not multiples of the 64-row tiles), t over one and several V tiles;
-    each call repeats bit for bit."""
+    (not multiples of the 64-row tiles); t = 1 and 11 on K4's narrow form,
+    40 and 256 on its wide form (one 64- and one 256-column slab); each
+    call repeats bit for bit."""
     z1, z2, w, V, G = _gram_case(1000, 777, t, 10, seed=t, dev=cuda_device)
     out = cuda_gram.gram_mvm_cuda(z1, z2, w, V, base)
     dz, dw = cuda_gram.gram_mvm_bwd_cuda(z1, z2, w, V, G, base)
