@@ -6,10 +6,12 @@ ported path through rpagp_torch.runner.run_split at full size:
   its two entry points, the 512 leaf and the (20, 256, 256) ladder batch;
   K2, K3), phases 2-4; K1 is also held bit for bit against the one-block
   kernel, on random matrices, at every level of the flagship's jitter
-  ladder and on the flagship's C-factor leaves;
+  ladder and on the flagship's C-factor leaves; K2 is held and timed on
+  uniform points (phase 2) and on the flagship split's own tfrac (phase
+  4), beside a scatter of precomputed taps by `index_add_`;
 - the BBMM dense path on elevators (K4, K5), phases 5-7; phase 5 also
-  prints the instruction mix of K4's inner loop from the built library's
-  SASS.
+  prints the instruction mix of K4's and K5's inner loops from the built
+  library's SASS.
 
     python3 chip_smoke.py
 
@@ -48,6 +50,10 @@ EXP_S = 16 * 132 * 1.98e9
 # (20, 256, 256)
 K1_LEAF_BEFORE_MS = "0.2248"
 K1_BATCH_BEFORE_MS = "0.660-0.663"
+# K2's time before it was rebuilt around the taps (every cell-owning
+# thread walked every staged point), t = 1 at the flagship shape, PERF.md
+# section 6, NVIDIA H100 80GB HBM3, 700.00 W
+K2_BEFORE_MS = "14.303-14.373"
 
 
 def bound(nbytes, flops=0.0, exps=0.0):
@@ -118,6 +124,33 @@ def phase0_env():
     return card
 
 
+def ptxas_usage(log, kernels):
+    """{kernel<template args>: "R registers, S bytes spilled"} from the
+    build's -Xptxas -v log, for the kernels whose name holds one of
+    `kernels`."""
+    import re
+
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+            hit = next((k for k in kernels if k in fn), None)
+            args = re.findall(r"Li(\d+)E", fn.split(hit)[-1]) if hit else []
+            name = f"{hit}<{','.join(args)}>" if hit else None
+            continue
+        if name is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores", line)
+        if spill:
+            out[name] = f"{spill.group(1)} bytes spilled"
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            out[name] = f"{regs.group(1)} registers, {out.get(name, '')}"
+            name = None
+    return out
+
+
 def phase1_build():
     from rpagp_torch.ops import _build
 
@@ -126,6 +159,11 @@ def phase1_build():
     say(1, f"kernels built in {time.perf_counter() - t0:.2f} s "
            f"(nvcc {_build.build_seconds} s) -> "
            f"{os.path.relpath(_build.library_path(), ROOT)}")
+    with open(_build.library_path()[:-3] + ".log") as f:
+        usage = ptxas_usage(f.read(), ("transpose_partial_kernel",
+                                       "gram_mvm_bwd_kernel"))
+    say(1, "ptxas -v (base, column pass): " + "; ".join(
+        f"{k} {v}" for k, v in sorted(usage.items())))
 
 
 def _spd(B, b, gen, dev):
@@ -388,10 +426,11 @@ def phase2_kernels(results):
         ms_a = cuda_ms(lambda: cuda_interp.interp_apply_sum_cuda(tf, G))
         pms_a = cuda_ms(lambda: cuda_interp.interp_apply_sum_plain(tf, G),
                         iters=2)
-        say(2, f"K2 t={t}: rel {eU:.2e}, {ms_t:.3f} ms vs plain {pms_t:.3f} ms;"
-               f" K3 t={t}: rel {eO:.2e}, {ms_a:.3f} ms vs plain "
-               f"{pms_a:.3f} ms; adjoint {adj:.1e}; padding exact; "
-               f"K2 repeatable")
+        say(2, f"K2 t={t} (uniform points): rel {eU:.2e}, {ms_t:.4f} ms vs "
+               f"plain {pms_t:.3f} ms (the kernel it replaced, t = 1: "
+               f"{K2_BEFORE_MS} ms, PERF.md); K3 t={t}: rel {eO:.2e}, "
+               f"{ms_a:.3f} ms vs plain {pms_a:.3f} ms; adjoint {adj:.1e}; "
+               f"padding exact; K2 repeats bit for bit")
         if t == 1:  # the main path's width
             # tfrac, V in and U out (K2), or tfrac, G in and out (K3); 4
             # taps per point and component, one FMA per column each
@@ -534,6 +573,109 @@ def phase3_slice():
     check(same == len(c_leaves), "C-factor leaves: the K1 kernels differ")
 
 
+def _taps_flat(tf, V, m):
+    """The weighted taps of K2 as a scatter: flat indices (j t + k) m + cell
+    and values w_d V[i, k] of every kept tap (cell on the grid, point not
+    padding), computed as csrc/interp.cu taps() does."""
+    import torch
+
+    J, n = tf.shape
+    t = V.shape[1]
+    fl = torch.floor(tf)
+    f = tf - fl
+    g = 1.0 - f
+
+    def inner(s):
+        return ((1.5 * s - 2.5) * s) * s + 1.0
+
+    def outer(s):
+        return ((-0.5 * s + 2.5) * s - 4.0) * s + 2.0
+
+    w = torch.stack([outer(1.0 + f), inner(f), inner(g), outer(1.0 + g)], -1)
+    cells = fl.clamp(-16, m + 16).long()[..., None] - 1 + torch.arange(
+        4, device=tf.device)
+    kept = ((tf > -8.0) & (tf < m + 8.0))[..., None] & (cells >= 0) & (
+        cells < m)
+    jj = torch.arange(J, device=tf.device)[:, None, None]
+    idx, vals = [], []
+    for k in range(t):
+        idx.append(((jj * t + k) * m + cells)[kept])
+        vals.append((w * V[:, k][None, :, None])[kept])
+    return torch.cat(idx), torch.cat(vals)
+
+
+def k2_on_split(tf):
+    """K2 on the flagship split's own tfrac (projected data crowding the
+    grid's middle, unlike phase 2's uniform points) at the path's widths,
+    t = 2 (prepare's U^T [y, 1]) and t = 1 (the posterior), and at t = 8:
+    rel vs plain, bit-for-bit repeats, the K2/K3 adjoint, padding; timed
+    beside a scatter of the same taps precomputed outside the timed call
+    (`index_add_`, atomics: not the same function)."""
+    import torch
+
+    from rpagp_torch.ops import cuda_interp
+
+    J, n = tf.shape
+    m = 256
+    gen = torch.Generator().manual_seed(4)
+    occupied = torch.bincount(torch.floor(tf[0]).long().clamp(0, m - 1),
+                              minlength=m)
+    say(4, f"the split's tfrac (J={J}, n={n}): component 0's busiest cell "
+           f"holds {int(occupied.max())} points ({100 * float(occupied.max()) / n:.2f}%), "
+           f"its 16 busiest {100 * float(occupied.sort().values[-16:].sum()) / n:.1f}%")
+    for t in (2, 1, 8):
+        V = torch.randn(n, t, generator=gen).to(tf.device)
+        G = torch.randn(J, t, m, generator=gen).to(tf.device)
+        U = cuda_interp.interp_transpose_cuda(tf, V, m)
+        Up = cuda_interp.interp_transpose_plain(tf, V, m)
+        O = cuda_interp.interp_apply_sum_cuda(tf, G)
+        torch.cuda.synchronize()
+        e = rel(U, Up)
+        check(e <= 1e-5, f"K2 on the split's tfrac t={t}: rel {e:.2e}")
+        check(torch.equal(cuda_interp.interp_transpose_cuda(tf, V, m), U),
+              f"K2 on the split's tfrac t={t}: not bit-identical on a repeat")
+        adj = abs(float(torch.sum(U.double() * G.double()))
+                  - float(torch.sum(V.double() * O.double()))) / float(
+            torch.linalg.norm(U.double()) * torch.linalg.norm(G.double()))
+        check(adj <= 1e-5, f"K2/K3 adjoint on the split's tfrac {adj:.2e}")
+        tfp, Vp = tf.clone(), V.clone()
+        tfp[:, -1000:] = -100.0
+        Vp[-1000:] = 1e6
+        check(torch.equal(cuda_interp.interp_transpose_cuda(tfp, Vp, m),
+                          cuda_interp.interp_transpose_cuda(tfp, V, m)),
+              "K2 padding contributes on the split's tfrac")
+        ms = cuda_ms(lambda: cuda_interp.interp_transpose_cuda(tf, V, m),
+                     iters=20)
+        line = (f"K2 on the split's tfrac t={t}: rel {e:.2e}, repeats bit for "
+                f"bit, adjoint {adj:.1e}, padding exact; {ms:.4f} ms")
+        if t <= 2:
+            idx, vals = _taps_flat(tf, V, m)
+            out = torch.zeros(J * t * m, device=tf.device)
+
+            def scatter():
+                return out.zero_().index_add_(0, idx, vals)
+
+            es = rel(scatter().view(J, t, m), Up)
+            sms = cuda_ms(scatter, iters=10)
+            line += (f"; scatter of {idx.numel()} precomputed taps by "
+                     f"index_add_ (atomics, not the same function) {sms:.4f}"
+                     f" ms, rel {es:.2e}")
+            del idx, vals
+        say(4, line)
+    # the same shape in turns: the split's tfrac, uniform points, and the
+    # split's tfrac sorted per component (each lane's points then share
+    # cells: back-to-back read-modify-writes of one word)
+    V = torch.randn(n, 1, generator=gen).to(tf.device)
+    kinds = {"split": tf,
+             "uniform": (1.0 + (m - 4.0) * torch.rand(J, n, generator=gen)
+                         ).to(tf.device),
+             "sorted": torch.sort(tf, dim=1).values.contiguous()}
+    turns = [(k, cuda_ms(lambda: cuda_interp.interp_transpose_cuda(
+        kinds[k], V, m), iters=20))
+        for k in ("split", "uniform", "sorted", "sorted", "uniform", "split")]
+    say(4, "K2 t=1 in turns: " + ", ".join(f"{k} {v:.4f} ms" for k, v in turns))
+
+
 def phase4_main_path(results):
     import torch
 
@@ -594,6 +736,7 @@ def phase4_main_path(results):
     params, buffers = exact_gp.init_model(exp.model, x.shape[1], generator=gen,
                                           device=dev)
     buffers = exact_gp.prepare_buffers(exp.model, params, buffers, x, y_train=y)
+    k2_on_split(buffers["ski_state"].tfrac)
     leaves = [params["raw_noise"], params["mean_const"],
               *params["kernel"].values()]
     for t in leaves:
@@ -693,12 +836,12 @@ def _sass_loops(text):
     return loops, ops
 
 
-def k4_sass_mix(library, fn_key="gram_mvm_narrow_kernelILi0ELi12E"):
-    """The instruction mix of K4's inner loop from the built library's
-    SASS (cuobjdump -sass), for one instantiation (default: rbf at t = 11,
-    the training shape): the innermost loop that holds MUFU.EX2, the loop
-    over components. Returns a dict, or None where cuobjdump is missing or
-    no such loop is found."""
+def sass_mix(library, fn_key):
+    """The instruction mix of a kernel's inner loop from the built
+    library's SASS (cuobjdump -sass), for one instantiation (K4's or K5's
+    at rbf, t = 11, the training shape): the innermost loop that holds
+    MUFU.EX2, the loop over components. Returns a dict, or None where
+    cuobjdump is missing or no such loop is found."""
     import collections
     import re
     import shutil
@@ -732,6 +875,12 @@ def k4_sass_mix(library, fn_key="gram_mvm_narrow_kernelILi0ELi12E"):
 # V), PERF.md section 6, NVIDIA H100 80GB HBM3, 700.00 W
 K4_BEFORE_MS = {"train": "1.599-1.612", "posterior CG/Lanczos": "1.332-1.514",
                 "cross K*Q": "1.795-1.810"}
+# K5's time before its redesign (the first port: accurate expf, per-component
+# sums in local memory, one 64-row block per SM wave), the training shape,
+# PERF.md section 6, NVIDIA H100 80GB HBM3, 700.00 W
+K5_BEFORE_MS = "2.392-2.413"
+SASS_KEYS = {"K4": "gram_mvm_narrow_kernelILi0ELi12E",
+             "K5": "gram_mvm_bwd_kernelILi0ELi12E"}
 
 
 def phase5_gram_kernels(results):
@@ -742,18 +891,19 @@ def phase5_gram_kernels(results):
     from rpagp_torch.ops import _build
     from rpagp_torch.ops import cuda_gram as cg
 
-    mix = k4_sass_mix(_build.library_path())
-    if mix is None:
-        say(5, "K4's SASS: not read (no cuobjdump, or no loop with MUFU.EX2 "
-               "found)")
-    else:
+    for kernel, key in SASS_KEYS.items():
+        mix = sass_mix(_build.library_path(), key)
+        if mix is None:
+            say(5, f"{kernel}'s SASS: not read (no cuobjdump, or no loop with "
+                   f"MUFU.EX2 found)")
+            continue
         per = mix["instructions"] / max(mix["mufu_ex2"], 1)
-        say(5, f"K4's SASS ({mix['function']}): the loop over components "
-               f"holds {mix['instructions']} instructions, {mix['mufu_ex2']} "
-               f"of them MUFU.EX2, {per:.2f} an exp ({mix['mix']}); the exp "
-               f"unit takes 8 issue cycles of a sub-partition per warp "
-               f"MUFU.EX2, so this loop alone is bound by the exp unit, not "
-               f"by issue")
+        say(5, f"{kernel}'s SASS ({mix['function']}): the loop over "
+               f"components holds {mix['instructions']} instructions, "
+               f"{mix['mufu_ex2']} of them MUFU.EX2, {per:.2f} an exp "
+               f"({mix['mix']}); the exp unit takes 8 issue cycles of a "
+               f"sub-partition per warp MUFU.EX2, so below 8 an exp this "
+               f"loop alone is bound by the exp unit, not by issue")
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(5)
@@ -784,17 +934,23 @@ def phase5_gram_kernels(results):
             results["gram_mvm"] = dict(max_abs_err=max_abs(out, outp), ms=ms,
                                        plain_ms=pms, bound_ms=bms,
                                        bound_by=bby, library_ms=None)
-        if label in ("train", "small"):
-            dz, dw = cg.gram_mvm_bwd_cuda(z1, z2, w, V, G, base)
-            dzp, dwp = cg.gram_mvm_bwd_plain(z1, z2, w, V, G, base)
-            torch.cuda.synchronize()
-            ez, ew = rel(dz, dzp), rel(dw, dwp)
-            check(ez <= 1e-4 and ew <= 1e-4,
-                  f"K5 {label}: rel dz {ez:.2e} dw {ew:.2e}")
+        # K5 at every case: against the plain version in float32 and in
+        # float64 (the 1e-5 bar is held against the latter)
+        dz, dw = cg.gram_mvm_bwd_cuda(z1, z2, w, V, G, base)
+        dzp, dwp = cg.gram_mvm_bwd_plain(z1, z2, w, V, G, base)
+        dz64, dw64 = cg.gram_mvm_bwd_plain(
+            *(a.double() for a in (z1, z2, w, V, G)), base)
+        torch.cuda.synchronize()
+        ez, ew = rel(dz, dz64), rel(dw, dw64)
+        check(ez <= 1e-5 and ew <= 1e-5,
+              f"K5 {label}: rel dz {ez:.2e} dw {ew:.2e}")
+        for _ in range(3):
             dz2, dw2 = cg.gram_mvm_bwd_cuda(z1, z2, w, V, G, base)
             check(torch.equal(dz, dz2) and torch.equal(dw, dw2),
                   f"K5 {label}: not bit-identical on a repeat")
-            line += f"; K5 rel dz {ez:.2e} dw {ew:.2e}, repeats bit for bit"
+        line += (f"; K5 rel dz {ez:.2e} dw {ew:.2e} (vs the float32 plain "
+                 f"{rel(dz, dzp):.2e} {rel(dw, dwp):.2e}), repeats bit for "
+                 f"bit")
         if label == "train":
             ms5 = cuda_ms(lambda: cg.gram_mvm_bwd_cuda(z1, z2, w, V, G, base))
             pms5 = cuda_ms(lambda: cg.gram_mvm_bwd_plain(z1, z2, w, V, G, base),
@@ -803,8 +959,10 @@ def phase5_gram_kernels(results):
             results["gram_mvm_bwd"] = dict(
                 max_abs_err=max(max_abs(dz, dzp), max_abs(dw, dwp)), ms=ms5,
                 plain_ms=pms5, bound_ms=bms5, bound_by=bby5, library_ms=None)
-            line += (f"; {ms5:.3f} ms vs plain {pms5:.3f} ms, bound "
-                     f"{bms5:.3f} ms ({term5})")
+            plan5 = cg.gram_mvm_bwd_plan(rows, cols, J, t, base, dev)
+            line += (f"; {ms5:.4f} ms (grid G = {plan5[0]}, {plan5[1]} z2 "
+                     f"chunks) vs plain {pms5:.3f} ms, bound {bms5:.3f} ms "
+                     f"({term5}); the first design {K5_BEFORE_MS} ms")
             # gradients through the autograd.Function against the plain VJP
             ts = [a.clone().requires_grad_(True) for a in (z1, z2, w, V)]
             cg.projected_gram_mvm(*ts, base).backward(G)

@@ -48,11 +48,20 @@
 //     at a time (slabs of 256 beyond that), so the Gram is not recomputed
 //     per column tile.
 //
-// K5 (not redesigned yet) computes with the accurate expf. One block owns
-// 64 rows and walks all of z2 in tiles of 64; its per-row dz sums stay in
-// registers and are added in a fixed order, its dw partials are reduced
-// within the block in a fixed tree and then across blocks by a second
-// kernel, in block order, in f64.
+// K5 takes the same route, with k1d and k1d' from one 2^x (the chain rule
+// for c folded into one factor per base, applied with w_j at the end). Its
+// tile is 64 rows by 128 z2 columns: thread tid owns row tid / 4 and 32
+// columns, so the Gm = G V^T tile is formed in registers (t FMAs a pair,
+// V^T staged by cp.async and double-buffered with the z2 coordinates, the
+// thread's row of G held in registers) and shared by all J components.
+// The component loop is outermost inside a tile, so no register array is
+// indexed by a component: per component a thread adds its 32 pairs into
+// one row sum for dz and one for dw (rbf: FADD, FMUL, MUFU.EX2, FMUL,
+// FFMA, FADD), the row's 4 lanes are added by a fixed butterfly, and one
+// lane adds the totals into the row's slots in shared memory. A
+// persistent grid walks (row tile, z2 chunk) items; each item writes its
+// dz rows to its chunk's slot and its dw sums to its own slot, and two
+// small kernels add the slots in order (dw in f64).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -60,165 +69,9 @@
 namespace {
 
 constexpr int NT = 256;     // threads per block
-constexpr int J_MAX = 64;   // per launch (K5 keeps J sums per thread)
-// K5's tiles
-constexpr int TI = 64;      // rows per block
-constexpr int TL = 64;      // z2 rows per tile
-constexpr int NPART = NT / TI;
-constexpr int LQ = TL / NPART;  // columns per thread per tile (16)
-constexpr int TCH = 32;     // columns of t per staged chunk
-
-constexpr float SQRT3 = 1.7320508075688772f;
-constexpr float SQRT5 = 2.23606797749979f;
+constexpr int J_MAX = 64;   // components per launch
 
 enum Base { RBF = 0, MATERN12 = 1, MATERN32 = 2, MATERN52 = 3 };
-
-// k1d(d) and its derivative d k1d / d d from one exp
-template <int BASE>
-__device__ __forceinline__ void k1d_and_grad(float d, float& k, float& g) {
-  if (BASE == RBF) {
-    const float e = expf(-0.5f * d * d);
-    k = e;
-    g = -d * e;
-    return;
-  }
-  const float a = fabsf(d);
-  const float sgn = (float)((d > 0.0f) - (d < 0.0f));
-  if (BASE == MATERN12) {
-    const float e = expf(-a);
-    k = e;
-    g = -sgn * e;
-  } else if (BASE == MATERN32) {
-    const float s = SQRT3 * a;
-    const float e = expf(-s);
-    k = (1.0f + s) * e;
-    g = -sgn * SQRT3 * s * e;
-  } else {
-    const float s = SQRT5 * a;
-    const float e = expf(-s);
-    k = (1.0f + s + s * s / 3.0f) * e;
-    g = -sgn * SQRT5 * (s + s * s) / 3.0f * e;
-  }
-}
-
-// s[j * TI + r] = z[(row0 + r) * J + j], zero past the last row
-__device__ __forceinline__ void stage_coords(float* s, const float* z,
-                                             int row0, int rows, int J) {
-  for (int e = threadIdx.x; e < J * TI; e += NT) {
-    const int j = e / TI, r = e % TI;
-    s[e] = (row0 + r < rows) ? z[(size_t)(row0 + r) * J + j] : 0.0f;
-  }
-}
-
-// grid ceil(n / TI); dynamic shared memory
-// (2 J TI + TL (TCH + 1) + TCH TI + TI J + NT + J) floats
-template <int BASE>
-__global__ void __launch_bounds__(NT)
-gram_mvm_bwd_kernel(const float* __restrict__ z1, const float* __restrict__ z2,
-                    const float* __restrict__ w, const float* __restrict__ V,
-                    const float* __restrict__ G, float* __restrict__ dz,
-                    float* __restrict__ dw_partial, int n, int m, int J,
-                    int t) {
-  extern __shared__ float smem[];
-  float* s_z1 = smem;                    // (J, TI)
-  float* s_z2 = s_z1 + J * TI;           // (J, TL)
-  float* s_v = s_z2 + J * TL;            // (TL, TCH + 1)
-  float* s_g = s_v + TL * (TCH + 1);     // (TCH, TI): G chunk, transposed
-  float* s_red = s_g + TCH * TI;         // (TI, J)
-  float* s_tree = s_red + TI * J;        // (NT,)
-  float* s_w = s_tree + NT;              // (J,)
-
-  const int tid = threadIdx.x;
-  const int r = tid % TI, part = tid / TI, lq = part * LQ;
-  const int row0 = blockIdx.x * TI;
-
-  stage_coords(s_z1, z1, row0, n, J);
-  for (int j = tid; j < J; j += NT) s_w[j] = w[j];
-
-  // per-thread sums over its columns, indexed by component
-  float dz_acc[J_MAX], dw_acc[J_MAX];
-  for (int j = 0; j < J; ++j) dz_acc[j] = dw_acc[j] = 0.0f;
-
-  for (int l0 = 0; l0 < m; l0 += TL) {
-    __syncthreads();
-    stage_coords(s_z2, z2, l0, m, J);
-
-    // Gm[r, lq + q] = sum_c G[row0 + r, c] V[l0 + lq + q, c]
-    float gm[LQ];
-#pragma unroll
-    for (int q = 0; q < LQ; ++q) gm[q] = 0.0f;
-    for (int cb = 0; cb < t; cb += TCH) {
-      const int tc = min(TCH, t - cb);
-      __syncthreads();
-      for (int e = tid; e < TL * TCH; e += NT) {
-        const int ll = e / TCH, c = e % TCH;
-        s_v[ll * (TCH + 1) + c] =
-            (l0 + ll < m && c < tc) ? V[(size_t)(l0 + ll) * t + cb + c] : 0.0f;
-      }
-      for (int e = tid; e < TI * TCH; e += NT) {
-        const int rr = e / TCH, c = e % TCH;
-        s_g[c * TI + rr] =
-            (row0 + rr < n && c < tc) ? G[(size_t)(row0 + rr) * t + cb + c]
-                                      : 0.0f;
-      }
-      __syncthreads();
-      for (int c = 0; c < tc; ++c) {
-        const float gr = s_g[c * TI + r];
-#pragma unroll
-        for (int q = 0; q < LQ; ++q) gm[q] += gr * s_v[(lq + q) * (TCH + 1) + c];
-      }
-    }
-
-    for (int j = 0; j < J; ++j) {
-      const float zr = s_z1[j * TI + r];
-      const float* zc = s_z2 + j * TL + lq;
-      float a_dz = 0.0f, a_dw = 0.0f;
-#pragma unroll
-      for (int q = 0; q < LQ; ++q) {
-        float k, g;
-        k1d_and_grad<BASE>(zr - zc[q], k, g);
-        a_dw += gm[q] * k;
-        a_dz += gm[q] * g;
-      }
-      dz_acc[j] += a_dz;
-      dw_acc[j] += a_dw;
-    }
-  }
-
-  // dz: add the parts of each row in order 0, 1, 2, 3, then scale by w_j
-  for (int p = 0; p < NPART; ++p) {
-    __syncthreads();
-    if (part == p)
-      for (int j = 0; j < J; ++j)
-        s_red[r * J + j] = (p == 0) ? dz_acc[j] : s_red[r * J + j] + dz_acc[j];
-  }
-  __syncthreads();
-  for (int e = tid; e < TI * J; e += NT) {
-    const int rr = e / J, j = e % J;
-    if (row0 + rr < n) dz[(size_t)(row0 + rr) * J + j] = s_w[j] * s_red[e];
-  }
-
-  // dw: a fixed-shape tree over the block's threads, one component at a time
-  for (int j = 0; j < J; ++j) {
-    __syncthreads();
-    s_tree[tid] = dw_acc[j];
-    for (int h = NT / 2; h > 0; h >>= 1) {
-      __syncthreads();
-      if (tid < h) s_tree[tid] += s_tree[tid + h];
-    }
-    if (tid == 0) dw_partial[(size_t)blockIdx.x * J + j] = s_tree[0];
-  }
-}
-
-// dw[j] = sum_b dw_partial[b, j], in block order, in f64
-__global__ void dw_reduce_kernel(const float* __restrict__ dw_partial,
-                                 float* __restrict__ dw, int nblocks, int J) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= J) return;
-  double s = 0.0;
-  for (int b = 0; b < nblocks; ++b) s += (double)dw_partial[(size_t)b * J + j];
-  dw[j] = (float)s;
-}
 
 // ---------------------------------------------------------------- K4 ----
 
@@ -279,12 +132,15 @@ __global__ void coords_t_kernel(const float* __restrict__ z,
     zt[(size_t)j * rp + r] = r < rows ? c * z[(size_t)r * J + j] : 0.0f;
 }
 
-// columns x0 .. x0+63 of zt (J, xp) into s (J, FT), 16 bytes a copy
-__device__ __forceinline__ void stage_coords_t(float* s, const float* zt,
-                                               int x0, int xp, int J) {
-  for (int e = threadIdx.x; e < J * (FT / 4); e += NT) {
-    const int j = e >> 4, c = 4 * (e & 15);
-    cp_async16(s + j * FT + c, zt + (size_t)j * xp + x0 + c, true);
+// rows x width floats from src (row stride xp, starting at column x0) into
+// s (row stride width), 16 bytes a copy, asynchronously; width % 4 == 0:
+// a tile of the coordinates from coords_t_kernel, or of V^T
+__device__ __forceinline__ void stage_rows(float* s, const float* src, int x0,
+                                           int xp, int rows, int width) {
+  const int w4 = width / 4;
+  for (int e = threadIdx.x; e < rows * w4; e += NT) {
+    const int r = e / w4, c = 4 * (e - r * w4);
+    cp_async16(s + r * width + c, src + (size_t)r * xp + x0 + c, true);
   }
 }
 
@@ -297,7 +153,7 @@ __device__ __forceinline__ void stage_tile(float* s_z2, float* s_v,
                                            int l0, int mp, int m, int J,
                                            int t, int c0, int tcols, int vs,
                                            bool vec) {
-  stage_coords_t(s_z2, z2t, l0, mp, J);
+  stage_rows(s_z2, z2t, l0, mp, J, FT);
   if (vec) {
     const int q4 = tcols / 4;
     for (int e = threadIdx.x; e < FT * q4; e += NT) {
@@ -411,7 +267,7 @@ gram_mvm_narrow_kernel(const float* __restrict__ z1t,
     int lt0, lt1;
     chunk_tiles(s, S, LT, &lt0, &lt1);
     __syncthreads();  // the last item is done with the shared tiles
-    stage_coords_t(s_z1, z1t, row0, np, J);
+    stage_rows(s_z1, z1t, row0, np, J, FT);
     stage_tile(s_z2, s_v, z2t, V, lt0 * FT, mp, m, J, t, 0, TCP, VS, vec);
     cp_async_commit();
 
@@ -508,7 +364,7 @@ gram_mvm_wide_kernel(const float* __restrict__ z1t,
     int lt0, lt1;
     chunk_tiles(s, S, LT, &lt0, &lt1);
     __syncthreads();
-    stage_coords_t(s_z1, z1t, row0, np, J);
+    stage_rows(s_z1, z1t, row0, np, J, FT);
     stage_tile(s_z2, s_v, z2t, V, lt0 * FT, mp, m, J, t, c0, TS, TS, vec);
     cp_async_commit();
 
@@ -584,6 +440,239 @@ __global__ void chunk_sum_kernel(const float* __restrict__ part,
   }
 }
 
+// ---------------------------------------------------------------- K5 ----
+
+constexpr int BR = 64;   // K5: rows of a tile, one per group of 4 lanes
+constexpr int BL = 128;  // K5: z2 columns of a tile
+constexpr int BQ = 32;   // K5: columns per thread: 16 k + 4 g + u, k < 8, u < 4
+constexpr float LN2SQ3 = 0.16015100463940046f;  // ln(2)^2 / 3
+
+// dz[i, j] = w_j * dz_scale * (the kernel's sum), the chain rule for the
+// prescaled coordinates: k1d'(d) is, with d' = c d and e = 2^(-d'^2) or
+// 2^(-|d'|), -d' e / c (rbf), -sign(d') e (matern12), -sqrt(3) ln2 d' e
+// (matern32), -(sqrt(5) ln2 / 3) d' (1 + |d'| ln2) e (matern52)
+template <int BASE>
+__host__ __device__ constexpr float dz_scale() {
+  return BASE == RBF        ? -1.1774100225154747f   // -1 / c = -sqrt(2 ln 2)
+         : BASE == MATERN12 ? -1.0f
+         : BASE == MATERN32 ? -1.2005661338529436f   // -sqrt(3) ln 2
+                            : -0.5166414047147861f;  // -sqrt(5) ln 2 / 3
+}
+
+// one pair of one component: the Gram cotangent gm at prescaled difference
+// d adds its k1d to adw and its (unscaled) k1d' to adz
+template <int BASE>
+__device__ __forceinline__ void bwd_pair(float d, float gm, float& adz,
+                                         float& adw) {
+  if (BASE == RBF) {
+    const float ge = gm * ex2(-d * d);
+    adz = fmaf(ge, d, adz);
+    adw += ge;
+  } else if (BASE == MATERN12) {
+    const float ge = gm * ex2(-fabsf(d));
+    adw += ge;
+    adz += d > 0.0f ? ge : (d < 0.0f ? -ge : 0.0f);  // sign(0) = 0
+  } else if (BASE == MATERN32) {
+    const float u = fabsf(d);
+    const float ge = gm * ex2(-u);
+    adw = fmaf(ge, fmaf(u, LN2, 1.0f), adw);
+    adz = fmaf(ge, d, adz);
+  } else {
+    const float u = fabsf(d);
+    const float ge = gm * ex2(-u);
+    adw = fmaf(ge, fmaf(u, fmaf(u, LN2SQ3, LN2), 1.0f), adw);
+    adz = fmaf(ge * d, fmaf(u, LN2, 1.0f), adz);
+  }
+}
+
+__device__ __forceinline__ void cp_async_wait0() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// columns c0 .. c0+TC-1 of G's row `row`, zero past n and t
+template <int TC>
+__device__ __forceinline__ void load_g(float gr[TC], const float* G, int row,
+                                       int n, int t, int c0) {
+#pragma unroll
+  for (int c = 0; c < TC; ++c)
+    gr[c] = (row < n && c0 + c < t) ? __ldg(G + (size_t)row * t + c0 + c)
+                                    : 0.0f;
+}
+
+// gm[4 k + u] += sum_c gr[c] V^T[c, 16 k + 4 g + u] over TC rows of the
+// staged V^T tile sv (TC, BL)
+template <int TC>
+__device__ __forceinline__ void contract_g(float gm[BQ], const float gr[TC],
+                                           const float* sv, int g) {
+#pragma unroll
+  for (int c = 0; c < TC; ++c)
+#pragma unroll
+    for (int k = 0; k < BQ / 4; ++k) {
+      const float4 v =
+          *reinterpret_cast<const float4*>(sv + c * BL + 16 * k + 4 * g);
+      gm[4 * k] = fmaf(gr[c], v.x, gm[4 * k]);
+      gm[4 * k + 1] = fmaf(gr[c], v.y, gm[4 * k + 1]);
+      gm[4 * k + 2] = fmaf(gr[c], v.z, gm[4 * k + 2]);
+      gm[4 * k + 3] = fmaf(gr[c], v.w, gm[4 * k + 3]);
+    }
+}
+
+// vt[c, l] = V[l, c] for l < m and c < t, 0 elsewhere: V^T padded to
+// (tp, mp), so that a tile's rows are staged with 16-byte copies
+__global__ void vt_kernel(const float* __restrict__ V, float* __restrict__ vt,
+                          int m, int mp, int t, int tp) {
+  const int l = blockIdx.x * blockDim.x + threadIdx.x;
+  if (l >= mp) return;
+  for (int c = 0; c < tp; ++c)
+    vt[(size_t)c * mp + l] = (l < m && c < t) ? V[(size_t)l * t + c] : 0.0f;
+}
+
+// K5, columns of V and G in passes of TC (TC in {1, 4, 8, 12, 16}: one pass
+// for t <= 16, passes of 16 beyond). z1t (J, np), z2t (J, mp): the
+// coordinates from coords_t_kernel, np = RT * BR, mp = LT * BL; vt (tp, mp)
+// from vt_kernel. Thread tid owns row tid / 4 of the 64-row tile and
+// columns 16 k + 4 g + u of the 128-column z2 tile, g = tid % 4. Items (row
+// tile rt, z2 chunk s), it = s RT + rt, over a persistent grid: item it
+// adds its rows' dz sums into slot s of dzp (S, n, J) and its dw sums into
+// dwp[it] (J,). Per tile: the thread's 32 Gm values in registers (t FMAs
+// each, shared by all components), then per component its 32 exps into a
+// row sum for dz and one for dw, the 4 lanes of the row added by a fixed
+// butterfly into the row's (dz, dw) slots in shared memory. Dynamic shared
+// memory: (2 TC BL + 2 J BL + J BR + 2 BR (J | 1)) floats.
+template <int BASE, int TC>
+__global__ void __launch_bounds__(NT, 2)
+gram_mvm_bwd_kernel(const float* __restrict__ z1t,
+                    const float* __restrict__ z2t,
+                    const float* __restrict__ vt, const float* __restrict__ G,
+                    float* __restrict__ dzp, float* __restrict__ dwp, int n,
+                    int m, int J, int t, int S) {
+  extern __shared__ __align__(16) float smem[];
+  const int JS = J | 1;  // odd row stride of the slabs: rows on distinct banks
+  float* s_v = smem;                // 2 x (TC, BL): V^T tiles
+  float* s_z2 = s_v + 2 * TC * BL;  // 2 x (J, BL), scaled
+  float* s_z1 = s_z2 + 2 * J * BL;  // (J, BR), scaled
+  float* s_dz = s_z1 + J * BR;      // (BR, JS): the item's dz row sums
+  float* s_dw = s_dz + BR * JS;     // (BR, JS): the item's dw row sums
+
+  const int tid = threadIdx.x, row = tid >> 2, g = tid & 3;
+  const int RT = (n + BR - 1) / BR, LT = (m + BL - 1) / BL;
+  const int np = RT * BR, mp = LT * BL;
+  const int tp = (t + TC - 1) / TC * TC;
+  const bool wide = tp > TC;  // uniform over the grid
+
+  for (int it = blockIdx.x; it < RT * S; it += gridDim.x) {
+    const int rt = it % RT, s = it / RT, row0 = rt * BR;
+    int lt0, lt1;
+    chunk_tiles(s, S, LT, &lt0, &lt1);
+    __syncthreads();  // the last item is done with the tiles and slabs
+    for (int e = tid; e < 2 * BR * JS; e += NT) s_dz[e] = 0.0f;
+    stage_rows(s_z1, z1t, row0, np, J, BR);
+    stage_rows(s_z2, z2t, lt0 * BL, mp, J, BL);
+    if (!wide) stage_rows(s_v, vt, lt0 * BL, mp, TC, BL);
+    cp_async_commit();
+    float gr[TC];
+    if (!wide) load_g<TC>(gr, G, row0 + row, n, t, 0);
+
+    for (int lt = lt0; lt < lt1; ++lt) {
+      const int buf = (lt - lt0) & 1;
+      if (lt + 1 < lt1) {
+        stage_rows(s_z2 + (buf ^ 1) * J * BL, z2t, (lt + 1) * BL, mp, J, BL);
+        if (!wide)
+          stage_rows(s_v + (buf ^ 1) * TC * BL, vt, (lt + 1) * BL, mp, TC,
+                     BL);
+      }
+      cp_async_commit();
+      cp_async_wait1();
+      __syncthreads();  // tile lt has landed, for every thread's copies
+
+      float gm[BQ];
+#pragma unroll
+      for (int q = 0; q < BQ; ++q) gm[q] = 0.0f;
+      if (!wide) {
+        contract_g<TC>(gm, gr, s_v + buf * TC * BL, g);
+      } else {
+        for (int c0 = 0; c0 < tp; c0 += TC) {
+          if (c0 > 0) __syncthreads();  // every thread is done with s_v
+          stage_rows(s_v, vt + (size_t)c0 * mp, lt * BL, mp, TC, BL);
+          cp_async_commit();
+          cp_async_wait0();
+          __syncthreads();
+          load_g<TC>(gr, G, row0 + row, n, t, c0);
+          contract_g<TC>(gm, gr, s_v, g);
+        }
+      }
+
+      const float* z2s = s_z2 + buf * J * BL;
+#pragma unroll 2
+      for (int j = 0; j < J; ++j) {
+        const float a = s_z1[j * BR + row];
+        float adz = 0.0f, adw = 0.0f;
+#pragma unroll
+        for (int k = 0; k < BQ / 4; ++k) {
+          const float4 b =
+              *reinterpret_cast<const float4*>(z2s + j * BL + 16 * k + 4 * g);
+          bwd_pair<BASE>(a - b.x, gm[4 * k], adz, adw);
+          bwd_pair<BASE>(a - b.y, gm[4 * k + 1], adz, adw);
+          bwd_pair<BASE>(a - b.z, gm[4 * k + 2], adz, adw);
+          bwd_pair<BASE>(a - b.w, gm[4 * k + 3], adz, adw);
+        }
+        // the row's 4 lanes: every lane gets the same total, in one order
+        adz += __shfl_xor_sync(0xffffffffu, adz, 1);
+        adw += __shfl_xor_sync(0xffffffffu, adw, 1);
+        adz += __shfl_xor_sync(0xffffffffu, adz, 2);
+        adw += __shfl_xor_sync(0xffffffffu, adw, 2);
+        if (g == 0) {
+          s_dz[row * JS + j] += adz;
+          s_dw[row * JS + j] += adw;
+        }
+      }
+      __syncthreads();  // buffer buf is free for tile lt + 2
+    }
+
+    __syncthreads();
+    float* out = dzp + (size_t)s * n * J;
+    for (int e = tid; e < BR * J; e += NT) {
+      const int r = e / J, j = e - r * J;
+      if (row0 + r < n) out[(size_t)(row0 + r) * J + j] = s_dz[r * JS + j];
+    }
+    for (int j = tid; j < J; j += NT) {
+      float v = 0.0f;
+      for (int r = 0; r < BR; ++r) v += s_dw[r * JS + j];
+      dwp[(size_t)it * J + j] = v;
+    }
+  }
+}
+
+// dz[i, j] = w_j scale sum_s dzp[s, i, j], s = 0 .. S-1 in order
+__global__ void bwd_dz_kernel(const float* __restrict__ dzp,
+                              const float* __restrict__ w,
+                              float* __restrict__ dz, size_t count, int J,
+                              int S, float scale) {
+  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < count;
+       e += (size_t)gridDim.x * blockDim.x) {
+    float v = dzp[e];
+    for (int k = 1; k < S; ++k) v += dzp[(size_t)k * count + e];
+    dz[e] = (scale * w[e % J]) * v;
+  }
+}
+
+// dw[j] = sum_it dwp[it, j], one block per j: thread x adds items x,
+// x + 256, .. in f64, then a fixed tree over the threads
+__global__ void __launch_bounds__(NT)
+bwd_dw_kernel(const float* __restrict__ dwp, float* __restrict__ dw,
+              int items, int J) {
+  __shared__ double s[NT];
+  const int j = blockIdx.x, tid = threadIdx.x;
+  double v = 0.0;
+  for (int it = tid; it < items; it += NT) v += (double)dwp[(size_t)it * J + j];
+  s[tid] = v;
+  for (int h = NT / 2; h > 0; h >>= 1) {
+    __syncthreads();
+    if (tid < h) s[tid] += s[tid + h];
+  }
+  if (tid == 0) dw[j] = (float)s[0];
+}
+
 // The forward kernel for width t and J components: its function, its
 // dynamic shared memory, and the slabs of t it covers per item
 struct FwdKernel {
@@ -639,23 +728,59 @@ FwdKernel fwd_kernel(int base, int J, int t) {
   return k;
 }
 
+// K5 for width t and J components: its function, its dynamic shared
+// memory and its column pass TC
+struct BwdKernel {
+  const void* fn;
+  size_t bytes;
+  int tc;
+};
+
+template <int BASE, int TC>
+BwdKernel bwd(int J) {
+  return {(const void*)gram_mvm_bwd_kernel<BASE, TC>,
+          sizeof(float) * (2 * TC * BL + 2 * J * BL + J * BR + 2 * BR * (J | 1)),
+          TC};
+}
+
 template <int BASE>
-int launch_bwd(const float* z1, const float* z2, const float* w,
-               const float* V, const float* G, float* dz, float* dw_partial,
-               float* dw, int n, int m, int J, int t, cudaStream_t s) {
-  const int nblocks = (n + TI - 1) / TI;
-  const size_t bytes = sizeof(float) * (2 * J * TI + TL * (TCH + 1) +
-                                        TCH * TI + TI * J + NT + J);
-  if (bytes > 48 * 1024)
-    cudaFuncSetAttribute(gram_mvm_bwd_kernel<BASE>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)bytes);
-  gram_mvm_bwd_kernel<BASE><<<nblocks, NT, bytes, s>>>(
-      z1, z2, w, V, G, dz, dw_partial, n, m, J, t);
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  dw_reduce_kernel<<<(J + 63) / 64, 64, 0, s>>>(dw_partial, dw, nblocks, J);
-  return (int)cudaGetLastError();
+BwdKernel bwd_kernel_of(int J, int t) {
+  switch (t == 1 ? 1 : t <= 16 ? (t + 3) / 4 * 4 : 16) {
+    case 1: return bwd<BASE, 1>(J);
+    case 4: return bwd<BASE, 4>(J);
+    case 8: return bwd<BASE, 8>(J);
+    case 12: return bwd<BASE, 12>(J);
+    default: return bwd<BASE, 16>(J);
+  }
+}
+
+// the kernel for (base, J, t), its shared-memory limit raised where it
+// needs more than 48 KB; fn = nullptr for an unknown base
+BwdKernel bwd_kernel(int base, int J, int t) {
+  BwdKernel k{nullptr, 0, 0};
+  switch (base) {
+    case RBF: k = bwd_kernel_of<RBF>(J, t); break;
+    case MATERN12: k = bwd_kernel_of<MATERN12>(J, t); break;
+    case MATERN32: k = bwd_kernel_of<MATERN32>(J, t); break;
+    case MATERN52: k = bwd_kernel_of<MATERN52>(J, t); break;
+  }
+  if (k.fn != nullptr && k.bytes > 48 * 1024)
+    cudaFuncSetAttribute(k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)k.bytes);
+  return k;
+}
+
+// the blocks of kernel fn the current device holds at once
+int resident_blocks(const void* fn, size_t bytes, int* G) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, NT, bytes);
+  if (e != cudaSuccess) return (int)e;
+  *G = per_sm * sms;
+  return *G >= 1 ? 0 : (int)cudaErrorInvalidConfiguration;
 }
 
 }  // namespace
@@ -669,17 +794,8 @@ extern "C" int rpagp_gram_mvm_grid(int J, int t, int base, int* G,
   if (J < 1 || J > J_MAX || t < 1) return (int)cudaErrorInvalidValue;
   const FwdKernel k = fwd_kernel(base, J, t);
   if (k.fn == nullptr) return (int)cudaErrorInvalidValue;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k.fn, NT,
-                                                      k.bytes);
-  if (e != cudaSuccess) return (int)e;
-  *G = per_sm * sms;
   *slabs = k.slabs;
-  return *G >= 1 ? 0 : (int)cudaErrorInvalidConfiguration;
+  return resident_blocks(k.fn, k.bytes, G);
 }
 
 // z1 (n, J), z2 (m, J), w (J,), V (m, t), out (n, t), all contiguous f32;
@@ -735,29 +851,72 @@ extern "C" int rpagp_gram_mvm(const float* z1, const float* z2, const float* w,
   return (int)cudaGetLastError();
 }
 
-// z1 (n, J), z2 (m, J), w (J,), V (m, t), G (n, t) contiguous f32; dz (n, J),
-// dw_partial (ceil(n / 64), J) scratch, dw (J,). 1 <= J <= 64 (the
-// wrapper launches once per group of 64 components).
-// Returns cudaGetLastError().
+// K5's persistent grid on the current device for (J, t, base): G, the
+// blocks of the chosen kernel the card holds at once. Returns a
+// cudaError_t.
+extern "C" int rpagp_gram_mvm_bwd_grid(int J, int t, int base, int* G) {
+  if (J < 1 || J > J_MAX || t < 1) return (int)cudaErrorInvalidValue;
+  const BwdKernel k = bwd_kernel(base, J, t);
+  if (k.fn == nullptr) return (int)cudaErrorInvalidValue;
+  return resident_blocks(k.fn, k.bytes, G);
+}
+
+// z1 (n, J), z2 (m, J), w (J,), V (m, t), G (n, t) contiguous f32 -> dz
+// (n, J), dw (J,); base 0..3 = rbf, matern12, matern32, matern52;
+// 1 <= J <= 64 (the wrapper launches once per group of 64 components).
+// scratch: f32 of J (np + mp) + tp mp + S n J + RT S J floats, RT =
+// ceil(n / 64), np = 64 RT, mp = m rounded up to 128, tp = t rounded up to
+// the kernel's pass (1 for t = 1, else 4 up to 16, then 16): the
+// coordinates, V^T, the chunks' dz sums and the items' dw sums. S >= 1 z2
+// chunks, at most ceil(m / 128); Gb: the persistent grid, at most
+// rpagp_gram_mvm_bwd_grid's. Returns cudaGetLastError().
 extern "C" int rpagp_gram_mvm_bwd(const float* z1, const float* z2,
                                   const float* w, const float* V,
-                                  const float* G, float* dz, float* dw_partial,
-                                  float* dw, int n, int m, int J, int t,
-                                  int base, void* stream) {
-  if (J < 1 || J > J_MAX) return (int)cudaErrorInvalidValue;
+                                  const float* G, float* dz, float* dw,
+                                  float* scratch, int n, int m, int J, int t,
+                                  int base, int S, int Gb, void* stream) {
+  if (J < 1 || J > J_MAX || n < 1 || m < 1 || t < 1 || S < 1 ||
+      S > (m + BL - 1) / BL || Gb < 1)
+    return (int)cudaErrorInvalidValue;
+  const BwdKernel k = bwd_kernel(base, J, t);
+  if (k.fn == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (base) {
-    case RBF:
-      return launch_bwd<RBF>(z1, z2, w, V, G, dz, dw_partial, dw, n, m, J, t, s);
-    case MATERN12:
-      return launch_bwd<MATERN12>(z1, z2, w, V, G, dz, dw_partial, dw, n, m, J,
-                                  t, s);
-    case MATERN32:
-      return launch_bwd<MATERN32>(z1, z2, w, V, G, dz, dw_partial, dw, n, m, J,
-                                  t, s);
-    case MATERN52:
-      return launch_bwd<MATERN52>(z1, z2, w, V, G, dz, dw_partial, dw, n, m, J,
-                                  t, s);
+  const float c = base == RBF        ? coord_scale<RBF>()
+                  : base == MATERN12 ? coord_scale<MATERN12>()
+                  : base == MATERN32 ? coord_scale<MATERN32>()
+                                     : coord_scale<MATERN52>();
+  const float scale = base == RBF        ? dz_scale<RBF>()
+                      : base == MATERN12 ? dz_scale<MATERN12>()
+                      : base == MATERN32 ? dz_scale<MATERN32>()
+                                         : dz_scale<MATERN52>();
+  const int RT = (n + BR - 1) / BR, np = RT * BR;
+  const int mp = (m + BL - 1) / BL * BL;
+  const int tp = (t + k.tc - 1) / k.tc * k.tc;
+  float* z1t = scratch;
+  float* z2t = z1t + (size_t)J * np;
+  float* vt = z2t + (size_t)J * mp;
+  float* dzp = vt + (size_t)tp * mp;
+  float* dwp = dzp + (size_t)S * n * J;
+  coords_t_kernel<<<(np + 255) / 256, 256, 0, s>>>(z1, z1t, n, np, J, c);
+  coords_t_kernel<<<(mp + 255) / 256, 256, 0, s>>>(z2, z2t, m, mp, J, c);
+  vt_kernel<<<(mp + 255) / 256, 256, 0, s>>>(V, vt, m, mp, t, tp);
+  const int items = RT * S;
+  const int grid = items < Gb ? items : Gb;
+  const float* z1c = z1t;
+  const float* z2c = z2t;
+  const float* vtc = vt;
+  void* args[] = {(void*)&z1c, (void*)&z2c, (void*)&vtc, (void*)&G,
+                  (void*)&dzp, (void*)&dwp, (void*)&n,   (void*)&m,
+                  (void*)&J,   (void*)&t,   (void*)&S};
+  cudaError_t e = cudaLaunchKernel(k.fn, dim3(grid), dim3(NT), args, k.bytes, s);
+  if (e != cudaSuccess) {
+    (void)cudaGetLastError();
+    return (int)e;
   }
-  return (int)cudaErrorInvalidValue;
+  const size_t count = (size_t)n * J;
+  const size_t blocks = (count + 255) / 256;
+  bwd_dz_kernel<<<blocks < 4096 ? (int)blocks : 4096, 256, 0, s>>>(
+      dzp, w, dz, count, J, S, scale);
+  bwd_dw_kernel<<<J, NT, 0, s>>>(dwp, dw, items, J);
+  return (int)cudaGetLastError();
 }

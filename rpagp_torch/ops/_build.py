@@ -39,11 +39,13 @@ _SIGNATURES = {
     "rpagp_gram_mvm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                        _I, _P],
     "rpagp_gram_mvm_grid": [_I, _I, _I, _P, _P],
+    "rpagp_gram_mvm_bwd_grid": [_I, _I, _I, _P],
     "rpagp_gram_mvm_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                           _P],
+                           _I, _I, _P],
 }
 
 _lib = None
+_build_error = None  # a failed build, raised again without rerunning nvcc
 build_seconds = None  # wall time of the nvcc run of this process, if any
 
 
@@ -120,9 +122,16 @@ def build() -> str:
 
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
-    global _lib
+    global _lib, _build_error
     if _lib is None:
-        handle = ctypes.CDLL(build())
+        if _build_error is not None:
+            raise RuntimeError(_build_error)
+        try:
+            path = build()
+        except RuntimeError as exc:
+            _build_error = str(exc)
+            raise
+        handle = ctypes.CDLL(path)
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(handle, name)
             fn.argtypes = argtypes

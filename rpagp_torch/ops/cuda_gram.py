@@ -19,11 +19,11 @@ and the value sides swapped). A CPU tensor takes the plain versions
 launches the kernels; anything else raises.
 
 The TPU kernel's `prec` and `bf16_exp` options are matrix-unit modes of
-the TPU; here everything is f32. K4 takes its exponentials on the exp
-unit (one 2^x of prescaled coordinates, csrc/gram_mvm.cu), K5 with the
-accurate expf. K4's launch is planned per shape (`gram_mvm_plan`): a
+the TPU; here everything is f32. K4 and K5 take their exponentials on
+the exp unit (one 2^x of prescaled coordinates, csrc/gram_mvm.cu). Each
+launch is planned per shape (`gram_mvm_plan`, `gram_mvm_bwd_plan`): a
 persistent grid of G blocks over (row tile, z2 chunk) items, whose
-partial sums a second kernel adds in chunk order.
+partial sums second kernels add in chunk order.
 """
 
 from __future__ import annotations
@@ -41,12 +41,13 @@ launches = {"gram_mvm": 0, "gram_mvm_bwd": 0}
 
 BASES = ("rbf", "matern12", "matern32", "matern52")
 J_MAX = 64  # csrc/gram_mvm.cu J_MAX: components per launch
-_ROWS_PER_BLOCK = 64  # csrc/gram_mvm.cu TI (K5 writes one dw partial each)
 TILE = 64  # csrc/gram_mvm.cu FT: K4's rows and z2 columns per Gram tile
+BWD_ROWS, BWD_COLS = 64, 128  # csrc/gram_mvm.cu BR, BL: K5's Gram tile
 MAX_CHUNKS = 32  # K4: the most z2 chunks (partial-sum slots) of one call
 _PLAIN_ELEMS = 1 << 25  # plain versions: (rows, m, J) elements per block
 
 _fwd_grids = {}  # (device index, J, t, base) -> (G, slabs) of K4's grid
+_bwd_grids = {}  # (device index, J, t pass, base) -> G of K5's grid
 
 _SQRT3 = math.sqrt(3.0)
 _SQRT5 = math.sqrt(5.0)
@@ -119,8 +120,9 @@ def _check_cuda(name, base, z1, z2, w, *mats):
 
 def _component_chunks(z1, z2, w):
     """The components in groups of at most J_MAX, the most one launch
-    takes (K5 keeps a sum per component in registers): K is the sum of the
-    groups' Grams, and dz, dw are per component. One group up to J_MAX."""
+    takes (K5's shared-memory slabs hold a sum per row and component): K
+    is the sum of the groups' Grams, and dz, dw are per component. One
+    group up to J_MAX."""
     J = z1.shape[1]
     if J <= J_MAX:
         yield 0, J, z1, z2, w
@@ -200,6 +202,38 @@ def gram_mvm_cuda(z1, z2, w, V, base: str = "rbf"):
     return out
 
 
+def bwd_pass(t: int) -> int:
+    """K5's column pass: t rounded up to 1, 4, 8, 12 or 16; passes of 16
+    beyond (csrc/gram_mvm.cu bwd_kernel_of)."""
+    return 1 if t == 1 else min(16, -(-t // 4) * 4)
+
+
+def gram_mvm_bwd_plan(n: int, m: int, J: int, t: int, base: str, device):
+    """(G, S) of K5 on a CUDA device: its persistent grid and its number
+    of z2 chunks, over (64-row tile, z2 chunk) items."""
+    device = torch.device(device)
+    key = (device.index if device.index is not None
+           else torch.cuda.current_device(), min(J, J_MAX), bwd_pass(t), base)
+    if key not in _bwd_grids:
+        G = ctypes.c_int(0)
+        with torch.cuda.device(key[0]):
+            err = _build.lib().rpagp_gram_mvm_bwd_grid(
+                key[1], key[2], BASES.index(base), ctypes.addressof(G))
+        _build.check(err, "gram_mvm_bwd occupancy query")
+        _bwd_grids[key] = G.value
+    G = _bwd_grids[key]
+    return G, z2_chunks(-(-n // BWD_ROWS), -(-m // BWD_COLS), G)
+
+
+def _bwd_scratch(n: int, m: int, J: int, t: int, S: int) -> int:
+    """Floats of K5's scratch (rpagp_gram_mvm_bwd): the coordinates, V^T,
+    the chunks' dz sums and the items' dw sums."""
+    RT = -(-n // BWD_ROWS)
+    mp = -(-m // BWD_COLS) * BWD_COLS
+    tp = -(-t // bwd_pass(t)) * bwd_pass(t)
+    return J * (RT * BWD_ROWS + mp) + tp * mp + S * n * J + RT * S * J
+
+
 def gram_mvm_bwd_cuda(z1, z2, w, V, G, base: str = "rbf"):
     _check_cuda("gram_mvm_bwd", base, z1, z2, w, V, G)
     n, J = z1.shape
@@ -210,17 +244,18 @@ def gram_mvm_bwd_cuda(z1, z2, w, V, G, base: str = "rbf"):
     t = V.shape[1]
     dz = torch.empty(n, J, dtype=z1.dtype, device=z1.device)
     dw = torch.empty(J, dtype=w.dtype, device=w.device)
-    if n == 0 or t == 0:
+    if n == 0 or m == 0 or t == 0:
         return dz.zero_(), dw.zero_()
-    partial = torch.empty(-(-n // _ROWS_PER_BLOCK), min(J, J_MAX),
-                          dtype=w.dtype, device=w.device)
+    Gb, S = gram_mvm_bwd_plan(n, m, J, t, base, V.device)
+    scratch = torch.empty(_bwd_scratch(n, m, min(J, J_MAX), t, S),
+                          dtype=V.dtype, device=V.device)
     for j0, j1, c1, c2, cw in _component_chunks(z1, z2, w):
         dzc = dz if j1 - j0 == J else torch.empty(n, j1 - j0, dtype=z1.dtype,
                                                   device=z1.device)
         err = _build.lib().rpagp_gram_mvm_bwd(
             c1.data_ptr(), c2.data_ptr(), cw.data_ptr(), V.data_ptr(),
-            G.data_ptr(), dzc.data_ptr(), partial.data_ptr(),
-            dw[j0:j1].data_ptr(), n, m, j1 - j0, t, BASES.index(base),
+            G.data_ptr(), dzc.data_ptr(), dw[j0:j1].data_ptr(),
+            scratch.data_ptr(), n, m, j1 - j0, t, BASES.index(base), S, Gb,
             _build.stream_ptr(V.device))
         _build.check(err, "gram_mvm_bwd kernel")
         launches["gram_mvm_bwd"] += 1

@@ -16,8 +16,8 @@ are exact adjoints of each other.
 A CPU tensor takes the plain version (the blocked dense plan of
 ops/ski.py: the (J, block, m) interpolation matrix built from tfrac,
 contracted with einsum); a CUDA tensor launches the kernel; anything else
-raises. The wrappers chunk t into launches of at most 8 columns, the
-kernels' register tile.
+raises. The wrappers chunk t into launches of at most 8 columns (K3's
+register tile; K2 runs passes of up to 8 inside a launch).
 """
 
 from __future__ import annotations
@@ -30,8 +30,8 @@ from . import _build
 launches = {"interp_transpose": 0, "interp_apply_sum": 0}
 
 T_CHUNK = 8  # columns per launch (csrc/interp.cu T_MAX)
-_M_MAX = 1024  # csrc/interp.cu CPT_MAX * threads
-_POINTS_PER_BLOCK = 16384  # K2: points per thread block (one partial sum)
+_M_MAX = 1024  # csrc/interp.cu M_MAX
+_POINTS_PER_BLOCK = 8192  # K2: points per warp (one partial sum)
 _DENSE_BLOCK = 4096  # plain version: points per dense W block
 
 

@@ -89,10 +89,12 @@ def build_interp_gram(state: ski.SKIState, block: int = 8192):
 
 
 def build_interp_y(kspec, state: ski.SKIState, y):
-    """(uy, u1) = (U^T y, U^T 1), each (J, m) — hyperparameter-free."""
-    uy = ski.dense_interp_transpose(state, y[:, None])[:, 0, :]
-    u1 = ski.dense_interp_transpose(state, torch.ones_like(y)[:, None])[:, 0, :]
-    return uy, u1
+    """(uy, u1) = (U^T y, U^T 1), each (J, m) — hyperparameter-free; one
+    transpose of the two columns (each column's sums are those of a
+    transpose of it alone)."""
+    U = ski.dense_interp_transpose(state, torch.stack([y, torch.ones_like(y)],
+                                                      dim=1))
+    return U[:, 0].contiguous(), U[:, 1].contiguous()
 
 
 def _cached_U(spec: ModelSpec, params, buffers):

@@ -289,12 +289,16 @@ def test_gram_mvm_matches_plain(cuda_device, base, t):
 @pytest.mark.parametrize("same", [False, True], ids=["cross", "self"])
 def test_gram_mvm_gradients_match_cpu(cuda_device, same):
     """dz1, dz2, dw, dV through the autograd.Function: K4/K5 on the card
-    against the plain versions on the CPU."""
+    (float32) against the plain versions on the CPU in float64. The loss
+    sum(sin(out)), with |out| up to ~42, carries the forward's rounding
+    into the gradient twenty-fold: a float32 CPU oracle sits 5-8e-6 from
+    the exact gradient and moves with its own rounding, so the oracle is
+    computed in float64 and the card's gradients are held to it."""
     z1, z2, w, V, _ = _gram_case(300, 300 if same else 250, 3, 7, seed=1,
                                  dev="cpu")
     grads = []
-    for d in (cuda_device, "cpu"):
-        ts = [a.to(d).requires_grad_(True) for a in (z1, z2, w, V)]
+    for d, dt in ((cuda_device, torch.float32), ("cpu", torch.float64)):
+        ts = [a.to(d, dt).requires_grad_(True) for a in (z1, z2, w, V)]
         zb = ts[0] if same else ts[1]
         torch.sum(torch.sin(cuda_gram.projected_gram_mvm(
             ts[0], zb, ts[2], ts[3], "matern32"))).backward()
@@ -344,3 +348,111 @@ def test_gram_mvm_rejects_bad_inputs(cuda_device):
         cuda_gram.gram_mvm_cuda(z1, z2[:, :3].contiguous(), w, V)
     with pytest.raises(TypeError):
         cuda_gram.gram_mvm_cuda(z1, z2, w, V.double())
+
+
+def _bwd_case(n, m, t, J, seed, dev):
+    """K5's inputs, with coincident points (d = 0) and float64 copies for
+    the plain version."""
+    z1, z2, w, V, G = _gram_case(n, m, t, J, seed, "cpu")
+    return ([a.to(dev) for a in (z1, z2, w, V, G)],
+            [a.to(dev, torch.float64) for a in (z1, z2, w, V, G)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("base", cuda_gram.BASES)
+@pytest.mark.parametrize("t", [1, 3, 11, 16, 17, 40])
+@pytest.mark.parametrize("J", [1, 10, 64, 65])
+def test_gram_mvm_bwd_matches_plain(cuda_device, base, t, J):
+    """K5 against its plain version (float64) on ragged n, m: one column
+    pass at t <= 16, passes of 16 beyond; J = 65 in two launches. dz and
+    dw rel <= 1e-5, and a repeat is bit for bit the same."""
+    args, args64 = _bwd_case(700, 900, t, J, seed=J * 100 + t,
+                             dev=cuda_device)
+    before = cuda_gram.launches["gram_mvm_bwd"]
+    dz, dw = cuda_gram.gram_mvm_bwd_cuda(*args, base)
+    assert cuda_gram.launches["gram_mvm_bwd"] - before == -(-J // 64)
+    dzp, dwp = cuda_gram.gram_mvm_bwd_plain(*args64, base)
+    torch.cuda.synchronize()
+    assert _rel(dz, dzp) <= 1e-5 and _rel(dw, dwp) <= 1e-5
+    dz2, dw2 = cuda_gram.gram_mvm_bwd_cuda(*args, base)
+    assert torch.equal(dz, dz2) and torch.equal(dw, dw2)
+
+
+@pytest.mark.cuda
+def test_gram_mvm_bwd_training_shape_repeats(cuda_device):
+    """The BBMM training shape (14,939 rows and columns, J = 10, t = 11,
+    several z2 chunks): rel <= 1e-5 against the plain version (float64),
+    and 20 repeats bit for bit the same."""
+    args, args64 = _bwd_case(14939, 14939, 11, 10, seed=7, dev=cuda_device)
+    Gb, S = cuda_gram.gram_mvm_bwd_plan(14939, 14939, 10, 11, "rbf",
+                                        cuda_device)
+    assert Gb >= 132 and 1 <= S <= cuda_gram.MAX_CHUNKS
+    dz, dw = cuda_gram.gram_mvm_bwd_cuda(*args, "rbf")
+    dzp, dwp = cuda_gram.gram_mvm_bwd_plain(*args64, "rbf")
+    assert _rel(dz, dzp) <= 1e-5 and _rel(dw, dwp) <= 1e-5
+    for _ in range(20):
+        dz2, dw2 = cuda_gram.gram_mvm_bwd_cuda(*args, "rbf")
+        assert torch.equal(dz, dz2) and torch.equal(dw, dw2)
+
+
+def _interp_case(J, n, m, t, kind, seed, dev):
+    rng = np.random.default_rng(seed)
+    if kind == "crowded":  # every point in three cells near the middle
+        tf = rng.choice([m / 2 - 0.7, m / 2 + 0.2, m / 2 + 1.45], (J, n))
+        tf = tf + 0.01 * rng.random((J, n))
+    else:
+        tf = rng.uniform(-2.0, m + 1.0, (J, n))
+    tf = tf.astype(np.float32)
+    tf[:, :8] = [-2.5, -1.5, -0.25, 0.0, m - 2.0, m - 1.0, m - 0.5, m + 0.5]
+    tf[:, -500:] = -100.0  # padding
+    V = rng.standard_normal((n, t)).astype(np.float32)
+    G = rng.standard_normal((J, t, m)).astype(np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (tf, V, G)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["uniform", "crowded"])
+@pytest.mark.parametrize("t", [1, 3, 8, 9])
+@pytest.mark.parametrize("m", [17, 256, 1000])
+def test_interp_transpose_matches_plain(cuda_device, kind, t, m):
+    """K2 against its plain version (float64): uniform points and points
+    crowded into three cells, the grid's edges, -100 padding; t = 9 in two
+    launches; rel <= 1e-5, padding contributes exactly zero, a repeat is
+    bit for bit the same, and K2 and K3 are adjoints to 1e-5."""
+    tf, V, G = _interp_case(5, 60000, m, t, kind, seed=m + t, dev=cuda_device)
+    before = cuda_interp.launches["interp_transpose"]
+    U = cuda_interp.interp_transpose_cuda(tf, V, m)
+    assert cuda_interp.launches["interp_transpose"] - before == -(-t // 8)
+    Up = cuda_interp.interp_transpose_plain(tf.double(), V.double(), m)
+    torch.cuda.synchronize()
+    assert _rel(U, Up) <= 1e-5
+    assert torch.equal(cuda_interp.interp_transpose_cuda(tf, V, m), U)
+    V2 = V.clone()
+    V2[-500:] = 1e6
+    assert torch.equal(cuda_interp.interp_transpose_cuda(tf, V2, m), U)
+    O = cuda_interp.interp_apply_sum_cuda(tf, G)
+    lhs = float(torch.sum(U.double() * G.double()))
+    rhs = float(torch.sum(V.double() * O.double()))
+    assert abs(lhs - rhs) <= 1e-5 * float(torch.linalg.norm(U.double())
+                                          * torch.linalg.norm(G.double()))
+
+
+@pytest.mark.cuda
+def test_build_interp_y_is_one_launch(cuda_device):
+    """Grid prepare's U^T y and U^T 1 come from one K2 launch at t = 2,
+    bit for bit what two launches at t = 1 give."""
+    from rpagp_torch.ops import grid_solve, ski
+
+    tf, V, _ = _interp_case(20, 50000, 256, 1, "uniform", seed=3,
+                            dev=cuda_device)
+    y = V[:, 0].contiguous()
+    state = ski.SKIState(grid_lo=None, h=None,
+                         cells=torch.arange(256.0, device=cuda_device),
+                         tfrac=tf)
+    before = cuda_interp.launches["interp_transpose"]
+    uy, u1 = grid_solve.build_interp_y(None, state, y)
+    assert cuda_interp.launches["interp_transpose"] - before == 1
+    one_y = cuda_interp.interp_transpose_cuda(tf, y[:, None], 256)[:, 0]
+    one_1 = cuda_interp.interp_transpose_cuda(
+        tf, torch.ones_like(y)[:, None], 256)[:, 0]
+    assert torch.equal(uy, one_y) and torch.equal(u1, one_1)
