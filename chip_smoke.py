@@ -8,7 +8,9 @@ ported path through rpagp_torch.runner.run_split at full size:
   kernel, on random matrices, at every level of the flagship's jitter
   ladder and on the flagship's C-factor leaves; K2 is held and timed on
   uniform points (phase 2) and on the flagship split's own tfrac (phase
-  4), beside a scatter of precomputed taps by `index_add_`;
+  4), beside a scatter of precomputed taps by `index_add_`; K3 on uniform
+  points at t = 1, 8 and 11 (phase 2) and on the split's tfrac and test
+  tfrac (phase 4), beside `embedding_bag` over precomputed taps;
 - the BBMM dense path on elevators (K4, K5), phases 5-7; phase 5 also
   prints the instruction mix of K4's and K5's inner loops from the built
   library's SASS.
@@ -54,6 +56,10 @@ K1_BATCH_BEFORE_MS = "0.660-0.663"
 # thread walked every staged point), t = 1 at the flagship shape, PERF.md
 # section 6, NVIDIA H100 80GB HBM3, 700.00 W
 K2_BEFORE_MS = "14.303-14.373"
+# K3's time before its redesign (one thread a point, its taps gathered
+# from G through L1), t = 1 at the flagship shape, PERF.md section 6,
+# NVIDIA H100 80GB HBM3, 700.00 W
+K3_BEFORE_MS = "0.4513-0.455"
 
 
 def bound(nbytes, flops=0.0, exps=0.0):
@@ -136,7 +142,7 @@ def ptxas_usage(log, kernels):
         if m:
             fn = m.group(1)
             hit = next((k for k in kernels if k in fn), None)
-            args = re.findall(r"Li(\d+)E", fn.split(hit)[-1]) if hit else []
+            args = re.findall(r"L[ib](\d+)E", fn.split(hit)[-1]) if hit else []
             name = f"{hit}<{','.join(args)}>" if hit else None
             continue
         if name is None:
@@ -161,9 +167,12 @@ def phase1_build():
            f"{os.path.relpath(_build.library_path(), ROOT)}")
     with open(_build.library_path()[:-3] + ".log") as f:
         usage = ptxas_usage(f.read(), ("transpose_partial_kernel",
+                                       "apply_sum_shifted_kernel",
+                                       "apply_sum_rows_kernel",
                                        "gram_mvm_bwd_kernel"))
-    say(1, "ptxas -v (base, column pass): " + "; ".join(
-        f"{k} {v}" for k, v in sorted(usage.items())))
+    say(1, "ptxas -v (K2 <columns>, K3 shifted <vec> and rows, K5 <base, "
+           "columns>): "
+           + "; ".join(f"{k} {v}" for k, v in sorted(usage.items())))
 
 
 def _spd(B, b, gen, dev):
@@ -397,7 +406,7 @@ def phase2_kernels(results):
     tf = (1.0 + (m - 4.0) * torch.rand(J, n, generator=gen)).to(dev)
     tf[:, :4] = torch.tensor([-1.5, -0.25, m - 1.0, m + 0.5])  # grid edges
     tf[:, -1000:] = -100.0  # padding
-    for t in (1, 8):
+    for t in (1, 8, 11):
         V = torch.randn(n, t, generator=gen).to(dev)
         G = torch.randn(J, t, m, generator=gen).to(dev)
         U = cuda_interp.interp_transpose_cuda(tf, V, m)
@@ -414,6 +423,8 @@ def phase2_kernels(results):
                                      * torch.linalg.norm(G.double()))
         check(adj <= 1e-5, f"K2/K3 adjoint identity {adj:.2e}")
         check(bool((O[-1000:] == 0).all()), "K3 padding rows not zero")
+        check(torch.equal(cuda_interp.interp_apply_sum_cuda(tf, G), O),
+              "K3 not deterministic")
         V2 = V.clone()
         V2[-1000:] = 1e6
         U2 = cuda_interp.interp_transpose_cuda(tf, V2, m)
@@ -423,25 +434,32 @@ def phase2_kernels(results):
         ms_t = cuda_ms(lambda: cuda_interp.interp_transpose_cuda(tf, V, m))
         pms_t = cuda_ms(lambda: cuda_interp.interp_transpose_plain(tf, V, m),
                         iters=2)
-        ms_a = cuda_ms(lambda: cuda_interp.interp_apply_sum_cuda(tf, G))
+        ms_a = cuda_ms(lambda: cuda_interp.interp_apply_sum_cuda(tf, G),
+                       iters=20)
         pms_a = cuda_ms(lambda: cuda_interp.interp_apply_sum_plain(tf, G),
                         iters=2)
+        # tfrac, V in and U out (K2), or tfrac, G in and out (K3); 4
+        # taps per point and component, one FMA per column each
+        nbytes = 4 * (J * n + n * t + J * t * m)
+        bms, bby, _ = bound(nbytes, flops=2 * 4 * J * n * t)
         say(2, f"K2 t={t} (uniform points): rel {eU:.2e}, {ms_t:.4f} ms vs "
                f"plain {pms_t:.3f} ms (the kernel it replaced, t = 1: "
                f"{K2_BEFORE_MS} ms, PERF.md); K3 t={t}: rel {eO:.2e}, "
-               f"{ms_a:.3f} ms vs plain {pms_a:.3f} ms; adjoint {adj:.1e}; "
-               f"padding exact; K2 repeats bit for bit")
+               f"{ms_a:.4f} ms vs plain {pms_a:.3f} ms, bound {bms:.4f} ms "
+               f"({bby}; the kernel before its redesign, t = 1: "
+               f"{K3_BEFORE_MS} ms, PERF.md); adjoint {adj:.1e}; padding "
+               f"exact; K2 and K3 repeat bit for bit")
         if t == 1:  # the main path's width
-            # tfrac, V in and U out (K2), or tfrac, G in and out (K3); 4
-            # taps per point and component, one FMA per column each
-            nbytes = 4 * (J * n + n * t + J * t * m)
-            bms, bby, _ = bound(nbytes, flops=2 * 4 * J * n * t)
+            lms, erel = embedding_bag_ms(tf, G, Op)
+            say(2, f"K3 t=1 yardstick: embedding_bag over the taps "
+                   f"precomputed outside the timed call (not the same "
+                   f"function) {lms:.4f} ms, rel vs plain {erel:.2e}")
             results["interp_transpose"] = dict(
                 max_abs_err=max_abs(U, Up), ms=ms_t, plain_ms=pms_t,
                 bound_ms=bms, bound_by=bby, library_ms=None)
             results["interp_apply_sum"] = dict(
                 max_abs_err=max_abs(O, Op), ms=ms_a, plain_ms=pms_a,
-                bound_ms=bms, bound_by=bby, library_ms=None)
+                bound_ms=bms, bound_by=bby, library_ms=lms)
 
 
 def _device_ms(fn, calls, names):
@@ -573,14 +591,12 @@ def phase3_slice():
     check(same == len(c_leaves), "C-factor leaves: the K1 kernels differ")
 
 
-def _taps_flat(tf, V, m):
-    """The weighted taps of K2 as a scatter: flat indices (j t + k) m + cell
-    and values w_d V[i, k] of every kept tap (cell on the grid, point not
-    padding), computed as csrc/interp.cu taps() does."""
+def _taps(tf, m):
+    """Every point's four taps as csrc/interp.cu taps() computes them:
+    weights (J, n, 4), cells (J, n, 4), and whether each is kept (cell on
+    the grid, point not padding)."""
     import torch
 
-    J, n = tf.shape
-    t = V.shape[1]
     fl = torch.floor(tf)
     f = tf - fl
     g = 1.0 - f
@@ -596,6 +612,17 @@ def _taps_flat(tf, V, m):
         4, device=tf.device)
     kept = ((tf > -8.0) & (tf < m + 8.0))[..., None] & (cells >= 0) & (
         cells < m)
+    return w, cells, kept
+
+
+def _taps_flat(tf, V, m):
+    """The weighted taps of K2 as a scatter: flat indices (j t + k) m + cell
+    and values w_d V[i, k] of every kept tap."""
+    import torch
+
+    J, n = tf.shape
+    t = V.shape[1]
+    w, cells, kept = _taps(tf, m)
     jj = torch.arange(J, device=tf.device)[:, None, None]
     idx, vals = [], []
     for k in range(t):
@@ -604,13 +631,41 @@ def _taps_flat(tf, V, m):
     return torch.cat(idx), torch.cat(vals)
 
 
-def k2_on_split(tf):
+def embedding_bag_ms(tf, G, plain):
+    """K3's yardstick: one `embedding_bag` call (mode "sum") over the taps
+    precomputed outside the timed call, a bag of 4 J rows j m + cell of
+    the (J m, t) table of G a point, a tap off the grid at row 0 with
+    weight 0 (not the same function: K3 computes its taps). Returns its
+    ms and its rel against the plain version's `plain`."""
+    import torch
+
+    J, n = tf.shape
+    t, m = G.shape[1], G.shape[2]
+    w, cells, kept = _taps(tf, m)
+    jj = torch.arange(J, device=tf.device)[:, None, None]
+    idx = torch.where(kept, jj * m + cells, 0).permute(1, 0, 2).reshape(
+        n, 4 * J)
+    wts = torch.where(kept, w, 0.0).permute(1, 0, 2).reshape(n, 4 * J)
+    del w, cells, kept
+    table = G.permute(0, 2, 1).reshape(J * m, t).contiguous()
+
+    def bag():
+        return torch.nn.functional.embedding_bag(
+            idx, table, per_sample_weights=wts, mode="sum")
+
+    e = rel(bag(), plain)
+    return cuda_ms(bag, iters=10), e
+
+
+def k2_on_split(tf, tf_test):
     """K2 on the flagship split's own tfrac (projected data crowding the
     grid's middle, unlike phase 2's uniform points) at the path's widths,
     t = 2 (prepare's U^T [y, 1]) and t = 1 (the posterior), and at t = 8:
     rel vs plain, bit-for-bit repeats, the K2/K3 adjoint, padding; timed
     beside a scatter of the same taps precomputed outside the timed call
-    (`index_add_`, atomics: not the same function)."""
+    (`index_add_`, atomics: not the same function). Then K3 at t = 1 on the
+    split's tfrac and on its test tfrac (n_test), beside `embedding_bag`
+    over precomputed taps (not the same function either)."""
     import torch
 
     from rpagp_torch.ops import cuda_interp
@@ -675,6 +730,45 @@ def k2_on_split(tf):
         for k in ("split", "uniform", "sorted", "sorted", "uniform", "split")]
     say(4, "K2 t=1 in turns: " + ", ".join(f"{k} {v:.4f} ms" for k, v in turns))
 
+    # K3 at the path's width (t = 1): on the split's tfrac (prepare's Vq0)
+    # and its test tfrac (the posterior mean, n_test; four copies taken in
+    # turn, so that each call reads its 16 MB from HBM, not from L2)
+    for label, x in (("tfrac", tf), ("test tfrac", tf_test)):
+        nx = x.shape[1]
+        G = torch.randn(J, 1, m, generator=gen).to(tf.device)
+        O = cuda_interp.interp_apply_sum_cuda(x, G)
+        Op = cuda_interp.interp_apply_sum_plain(x, G)
+        e = rel(O, Op)
+        check(e <= 1e-5, f"K3 on the split's {label}: rel {e:.2e}")
+        check(torch.equal(cuda_interp.interp_apply_sum_cuda(x, G), O),
+              f"K3 on the split's {label}: not bit-identical on a repeat")
+        xp = x.clone()
+        xp[:, -1000:] = -100.0
+        check(bool((cuda_interp.interp_apply_sum_cuda(xp, G)[-1000:] == 0)
+                   .all()), f"K3 padding rows not zero on the split's {label}")
+        copies = [x] if nx == n else [x.clone() for _ in range(4)]
+        turn = [0]
+
+        def k3():
+            turn[0] += 1
+            return cuda_interp.interp_apply_sum_cuda(
+                copies[turn[0] % len(copies)], G)
+
+        ms = cuda_ms(k3, iters=20)
+        bms, _, _ = bound(4 * (J * nx + nx + J * m), flops=2 * 4 * J * nx)
+        line = (f"K3 on the split's {label} t=1 (n={nx}): rel {e:.2e}, "
+                f"repeats bit for bit, padding exact; {ms:.4f} ms, bound "
+                f"{bms:.4f} ms")
+        if nx == n:
+            lms, el = embedding_bag_ms(x, G, Op)
+            line += (f"; embedding_bag over precomputed taps (not the same "
+                     f"function) {lms:.4f} ms, rel {el:.2e}")
+        say(4, line)
+    turns = [(k, cuda_ms(lambda: cuda_interp.interp_apply_sum_cuda(
+        kinds[k], G), iters=20))
+        for k in ("split", "uniform", "sorted", "sorted", "uniform", "split")]
+    say(4, "K3 t=1 in turns: " + ", ".join(f"{k} {v:.4f} ms" for k, v in turns))
+
 
 def phase4_main_path(results):
     import torch
@@ -682,7 +776,7 @@ def phase4_main_path(results):
     from rpagp_torch import runner
     from rpagp_torch.mll import mll
     from rpagp_torch.models import exact_gp
-    from rpagp_torch.ops import cuda_chol, cuda_interp, grid_solve
+    from rpagp_torch.ops import cuda_chol, cuda_interp, grid_solve, ski
     from rpagp_torch.utils import datasets
     from rpagp_torch.utils.config import load_spec
 
@@ -736,7 +830,17 @@ def phase4_main_path(results):
     params, buffers = exact_gp.init_model(exp.model, x.shape[1], generator=gen,
                                           device=dev)
     buffers = exact_gp.prepare_buffers(exp.model, params, buffers, x, y_train=y)
-    k2_on_split(buffers["ski_state"].tfrac)
+    # the test tfrac as grid_posterior builds it: a grid over the union of
+    # the train and test projections
+    xt = torch.as_tensor(split.test_x, device=dev)
+    kspec, kp, kb = exp.model.kernel, params["kernel"], buffers["kernel"]
+    z, zt = (ski.project(kspec, kp, kb, a) for a in (x, xt))
+    span = (torch.minimum(z.amin(1), zt.amin(1)),
+            torch.maximum(z.amax(1), zt.amax(1)))
+    tf_test = ski.build_ski(kspec, kp, kb, xt, kspec.grid_size,
+                            z_bounds=span).tfrac
+    del z, zt
+    k2_on_split(buffers["ski_state"].tfrac, tf_test)
     leaves = [params["raw_noise"], params["mean_const"],
               *params["kernel"].values()]
     for t in leaves:

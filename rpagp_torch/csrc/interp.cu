@@ -13,9 +13,30 @@
 //
 // What bounds them on the H100: both read tfrac (4 J n bytes, J = 20 and
 // n = 1.84M at the flagship) once per call plus t n values; the
-// arithmetic is tiny. K3 is one thread per point, streaming tfrac with
-// coalesced loads and gathering its 4 taps of G through the read-only
-// cache. K2 is a scatter whose work follows the taps: one warp takes a
+// arithmetic is tiny. K3 is a gather: one block of 512 threads an SM, each
+// block a contiguous range of points, a thread 4 consecutive points (one
+// 16-byte load of tfrac a component, the next 4 components' loads in
+// flight while these are added). The taps come from a table of G staged
+// in shared memory once a block and sweep (cp.async). At t = 1 it is the
+// TPU kernel's shifted G (`_shift_last`): entry c + 3 of a component holds
+// G[c - 1 .. c + 2], zero off the grid, so a point's four taps are one
+// 16-byte shared load and a point's tfrac, clamped to [-3, m + 1], needs
+// no bounds test (off the grid, padding included, it lands on an entry of
+// zeros); the loads of the next 4 components go out while these are
+// added, and out is written as one 16-byte store a thread. At t >= 2 the
+// table is G's cells as rows of 4 or 8 columns (passes of 8 columns), and
+// 4 or 8 lanes take a point: each reads one 16-byte piece of the point's
+// 4 contiguous rows, so at 8 columns a quarter-warp reads 128 contiguous
+// bytes, free of bank conflicts (at 4, two 64-byte blocks that may share
+// banks). A lane a point on that table reads 8 random rows a
+// quarter-warp, and its bank conflicts made t = 8 no faster than the
+// kernel before. Each lane computes its own tap's weight; the 4 taps'
+// sums meet in two
+// butterfly steps at the end of a tile. Components past the table's 220 KB
+// run in further sweeps that add to out. No atomics: every sum has a
+// fixed order (at t = 1 one FMA a tap, over the components and then the
+// taps in order), so repeats are bit for bit the same.
+// K2 is a scatter whose work follows the taps: one warp takes a
 // chunk of points of one component, lane l its points l, l + 32, .., and
 // every lane adds its points' taps into its own copy of the (t, m)
 // accumulator in shared memory, so no two lanes ever add to one word and
@@ -37,9 +58,9 @@
 
 namespace {
 
-constexpr int T_MAX = 8;     // columns per launch (the wrapper chunks t)
+constexpr int T_MAX = 8;     // K2: columns per launch (the wrapper chunks t)
 constexpr int M_MAX = 1024;  // grid cells
-constexpr int NT = 256;      // threads per block of K3 and the reduction
+constexpr int NT = 256;      // threads per block of K2's reduction
 constexpr int LANE_FLOATS = 256;  // K2: a lane's accumulator floats a pass
 // K2: points a lane loads a batch, the next batch's loads in flight
 // while this one's taps are added: 16 at one column, fewer at more
@@ -188,34 +209,344 @@ __global__ void reduce_partials_kernel(const float* __restrict__ partial,
   U[e] = s;
 }
 
-// out[i, k] (row stride ld) = sum_j sum_taps w G[j, k, cell]
-__global__ void __launch_bounds__(NT)
-apply_sum_kernel(const float* __restrict__ tfrac, const float* __restrict__ G,
-                 float* __restrict__ out, int J, int n, int t, int m,
-                 int ld) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float acc[T_MAX];
-#pragma unroll
-  for (int k = 0; k < T_MAX; ++k) acc[k] = 0.0f;
-  for (int j = 0; j < J; ++j) {
-    float w[4];
-    const int i0 = taps(tfrac[(size_t)j * n + i], m, w);
-    if (i0 == NO_CELL) continue;
-    const float* Gj = G + (size_t)j * t * m;
+// ---------------------------------------------------------------- K3 ----
+
+constexpr int K3_NT = 512;  // threads a block
+constexpr int K3_BLOCKS_PER_SM = 1;
+constexpr int K3_JC = 4;  // t = 1: components whose tfrac loads go out together
+constexpr int K3_JC_ROWS = 4;  // t >= 2: the same
+constexpr int K3_TC = 8;  // columns a pass of the rows table
+constexpr int K3_SMEM = 220 * 1024;  // table bytes a block may hold
+
+// 4-byte asynchronous copy global -> shared; with in = false it reads
+// nothing and writes a zero
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool in) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(in ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float lane_of(float4 v, int p) {
+  return p == 0 ? v.x : p == 1 ? v.y : p == 2 ? v.z : v.w;
+}
+
+// tf clamped to [-3, m + 1] (hi = m + 1), so that a point off the grid
+// (the -100 padding, NaN and infinities too) lands on a base cell whose
+// taps are all zero in the tables
+__device__ __forceinline__ float k3_clamp(float tf, float hi) {
+  return fminf(fmaxf(tf, -3.0f), hi);
+}
+// e = fl + 3 for fl = floor of a clamped tf, in [0, m + 4]: the point's
+// table entry (shifted) or first row (rows); the low bits of
+// 2^23 + fl + 3, which is exact
+__device__ __forceinline__ int k3_entry(float fl) {
+  return __float_as_int(fl + 8388611.0f) - 0x4B000000;
+}
+
+// shifted table of components j0 .. j0 + jn - 1 (t = 1): float4 entry
+// jl (m + 5) + e holds G[c - 1], G[c], G[c + 1], G[c + 2] of base cell
+// c = e - 3, zero off the grid
+__device__ __forceinline__ void stage_shifted(float* tab,
+                                              const float* __restrict__ G,
+                                              int j0, int jn, int m) {
+  const int E = m + 5;
+  for (int x = threadIdx.x; x < jn * E; x += K3_NT) {
+    const int jl = x / E;
+    const int c = x - jl * E - 3;
+    const float* g = G + (size_t)(j0 + jl) * m;
 #pragma unroll
     for (int d = 0; d < 4; ++d) {
-      const int c = i0 - 1 + d;
-      if (c >= 0 && c < m) {
-#pragma unroll
-        for (int k = 0; k < T_MAX; ++k)
-          if (k < t) acc[k] += w[d] * __ldg(Gj + (size_t)k * m + c);
-      }
+      const int cc = c - 1 + d;
+      const bool in = (unsigned)cc < (unsigned)m;
+      cp_async4(tab + 4 * x + d, in ? g + cc : G, in);
     }
   }
+}
+
+// rows table of columns k0 .. k0 + tc - 1 of components j0 .. j0 + jn - 1:
+// cell c (-4 <= c < m + 4) at row jl (m + 8) + c + 4 of tp floats (4 or 8),
+// zero off the grid and past tc; a warp copies one (component, column)
+// row of G at a time, its lanes along the cells
+__device__ __forceinline__ void stage_rows(float* tab,
+                                           const float* __restrict__ G,
+                                           int j0, int jn, int t, int m,
+                                           int k0, int tc, int tp) {
+  const int R = m + 8, lane = threadIdx.x & 31;
+  for (int row = threadIdx.x >> 5; row < jn * tp; row += K3_NT / 32) {
+    const int jl = row / tp, k = row - jl * tp;
+    const bool col = k < tc;
+    const float* g = G + ((size_t)(j0 + jl) * t + k0 + (col ? k : 0)) * m;
+    float* dst = tab + (size_t)jl * R * tp + k;
+    for (int r = lane; r < R; r += 32) {
+      const int c = r - 4;
+      const bool in = col && (unsigned)c < (unsigned)m;
+      cp_async4(dst + r * tp, in ? g + c : G, in);
+    }
+  }
+}
+
+// tfrac of quad q (points 4q .. 4q + 3) of one component row; -100 (a
+// point that adds nothing) where in is false or past the row's end
+template <bool VEC>
+__device__ __forceinline__ float4 load_quad(const float* __restrict__ row,
+                                            int q, bool in, int n) {
+  if constexpr (VEC) {
+    // evict-first: each byte is read once (2-3% faster than __ldg here)
+    return in ? __ldcs(reinterpret_cast<const float4*>(row) + q)
+              : make_float4(-100.0f, -100.0f, -100.0f, -100.0f);
+  } else {
+    float v[4];
 #pragma unroll
-  for (int k = 0; k < T_MAX; ++k)
-    if (k < t) out[(size_t)i * ld + k] = acc[k];
+    for (int p = 0; p < 4; ++p) {
+      const int i = 4 * q + p;
+      v[p] = in && i < n ? __ldg(row + i) : -100.0f;
+    }
+    return make_float4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// t = 1. grid (blocks), K3_NT threads. Block b takes quads
+// [b Q / nb, (b + 1) Q / nb) of the Q = ceil(n / 4), a thread the quad
+// q_lo + K3_NT tile + tid of each tile, and per component one 16-byte load
+// and, per point, one 16-byte table load: out[i] adds w_d tap_d over the
+// components and taps in order. Components in sweeps of jg (the table's
+// capacity), each after the first adding to out. VEC: rows of whole
+// 16-byte quads (n % 4 == 0, tfrac 16-byte aligned).
+template <bool VEC>
+__global__ void __launch_bounds__(K3_NT, K3_BLOCKS_PER_SM)
+apply_sum_shifted_kernel(const float* __restrict__ tfrac,
+                         const float* __restrict__ G, float* __restrict__ out,
+                         int J, int n, int m, int jg) {
+  extern __shared__ __align__(16) float tab[];
+  const int Q = (n + 3) / 4;
+  const int q_lo = (int)((long long)blockIdx.x * Q / gridDim.x);
+  const int q_hi = (int)((long long)(blockIdx.x + 1) * Q / gridDim.x);
+  const int ntile = (q_hi - q_lo + K3_NT - 1) / K3_NT;
+  const float hi = (float)(m + 1);
+  const float4* tab4 = reinterpret_cast<const float4*>(tab);
+  for (int j0 = 0; j0 < J; j0 += jg) {
+    const int jn = min(jg, J - j0);
+    const int nch = (jn + K3_JC - 1) / K3_JC;
+    // quad q of the sweep's components ch K3_JC .. + K3_JC - 1
+    auto load = [&](float4 v[K3_JC], int ch, int q) {
+#pragma unroll
+      for (int u = 0; u < K3_JC; ++u) {
+        const int jl = ch * K3_JC + u;
+        v[u] = load_quad<VEC>(tfrac + (size_t)(j0 + min(jl, jn - 1)) * n, q,
+                              q < q_hi && jl < jn, n);
+      }
+    };
+    float4 cur[K3_JC], nxt[K3_JC];
+    load(cur, 0, q_lo + threadIdx.x);  // out before the table is staged
+    __syncthreads();  // every read of the last sweep's table is done
+    stage_shifted(tab, G, j0, jn, m);
+    cp_async_wait_all();
+    __syncthreads();
+    float acc[4];
+    for (int tile = 0, ch = 0;;) {
+      int tile2 = tile, ch2 = ch + 1;
+      if (ch2 == nch) {
+        ch2 = 0;
+        ++tile2;
+      }
+      if (tile2 < ntile) load(nxt, ch2, q_lo + tile2 * K3_NT + threadIdx.x);
+      const int q = q_lo + tile * K3_NT + threadIdx.x;
+      const bool in = q < q_hi;
+      if (ch == 0) {
+#pragma unroll
+        for (int p = 0; p < 4; ++p) acc[p] = 0.0f;
+        if (j0 > 0 && in) {  // a later sweep adds to the earlier ones
+          if constexpr (VEC) {
+            const float4 o = reinterpret_cast<const float4*>(out)[q];
+#pragma unroll
+            for (int p = 0; p < 4; ++p) acc[p] = lane_of(o, p);
+          } else {
+#pragma unroll
+            for (int p = 0; p < 4; ++p)
+              if (4 * q + p < n) acc[p] = out[4 * q + p];
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < K3_JC; ++u) {
+        const int jl = ch * K3_JC + u;
+        if (jl >= jn) continue;
+        const float4* tj = tab4 + jl * (m + 5);
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          const float tf = k3_clamp(lane_of(cur[u], p), hi);
+          const float fl = floorf(tf);
+          const float f = tf - fl, g = 1.0f - f;
+          const float4 v = tj[k3_entry(fl)];
+          acc[p] = fmaf(outer_w(1.0f + f), v.x, acc[p]);
+          acc[p] = fmaf(inner_w(f), v.y, acc[p]);
+          acc[p] = fmaf(inner_w(g), v.z, acc[p]);
+          acc[p] = fmaf(outer_w(1.0f + g), v.w, acc[p]);
+        }
+      }
+      if (ch == nch - 1 && in) {
+        if constexpr (VEC) {
+          reinterpret_cast<float4*>(out)[q] =
+              make_float4(acc[0], acc[1], acc[2], acc[3]);
+        } else {
+#pragma unroll
+          for (int p = 0; p < 4; ++p)
+            if (4 * q + p < n) out[4 * q + p] = acc[p];
+        }
+      }
+      if (tile2 >= ntile) break;
+      tile = tile2;
+      ch = ch2;
+#pragma unroll
+      for (int u = 0; u < K3_JC; ++u) cur[u] = nxt[u];
+    }
+  }
+}
+
+// t >= 2, one sweep of the rows table (tp = TP floats a row): TP lanes a
+// point. Lane s of a point's group reads the float4 at 4 s of the point's
+// rows e .. e + 3 (4 TP contiguous floats, so the 8 lanes of a
+// quarter-warp read 128 contiguous bytes or two 64-byte blocks): tap
+// d = 4 s / TP, columns 4 (s % (TP / 4)) .. + 3, and computes that tap's
+// weight alone. A warp's 32 points per tile: lane l loads point l's tfrac;
+// in round r group g takes point r 32 / TP + g (its tfrac by a shuffle).
+// Each lane adds its tap over the components in order; at the tile's end
+// the point's 4 taps are added by two butterfly steps, ((d0 + d1) +
+// (d2 + d3)), and lane d = 0 writes its 4 columns.
+template <int TP>
+__device__ __forceinline__ void rows_sweep(const float* tab,
+                                           const float* __restrict__ tfrac,
+                                           float* __restrict__ out, int n,
+                                           int t, int m, int j0, int jn,
+                                           int k0, int tc, int p_lo,
+                                           int p_hi, int ntile, float hi) {
+  constexpr int GW = 32 / TP;  // points a warp takes at once
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane / TP, s = lane % TP, d = 4 * s / TP, h = s % (TP / 4);
+  // the lane's tap: taps()'s Horner polynomial in x = 1 + f, f, g or
+  // 1 + g for d = 0 .. 3, from f by one FMA and one add whose constants
+  // are the lane's (the same roundings as taps()'s)
+  const bool outer = d == 0 || d == 3;
+  const float cS = d < 2 ? 1.0f : -1.0f, cO = d < 2 ? 0.0f : 1.0f;
+  const float cX = outer ? 1.0f : 0.0f;
+  const float cA = outer ? -0.5f : 1.5f, cB = outer ? 2.5f : -2.5f;
+  const float cC = outer ? -4.0f : 0.0f, cD = outer ? 2.0f : 1.0f;
+  const int nch = (jn + K3_JC_ROWS - 1) / K3_JC_ROWS;
+  const int R = m + 8;
+  auto load = [&](float v[K3_JC_ROWS], int tile, int ch) {
+    const int i = p_lo + tile * K3_NT + warp * 32 + lane;
+#pragma unroll
+    for (int u = 0; u < K3_JC_ROWS; ++u) {
+      const int jl = ch * K3_JC_ROWS + u;
+      v[u] = i < p_hi && jl < jn ? __ldg(tfrac + (size_t)(j0 + jl) * n + i)
+                                 : -100.0f;
+    }
+  };
+  // clamped once by the loading lane, not by each of the point's TP lanes
+  float cur[K3_JC_ROWS], nxt[K3_JC_ROWS], acc[TP][4];
+  load(cur, 0, 0);
+#pragma unroll
+  for (int u = 0; u < K3_JC_ROWS; ++u) cur[u] = k3_clamp(cur[u], hi);
+  for (int tile = 0, ch = 0;;) {
+    int tile2 = tile, ch2 = ch + 1;
+    if (ch2 == nch) {
+      ch2 = 0;
+      ++tile2;
+    }
+    if (tile2 < ntile) load(nxt, tile2, ch2);
+    if (ch == 0) {
+#pragma unroll
+      for (int r = 0; r < TP; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] = 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < K3_JC_ROWS; ++u) {
+      const int jl = ch * K3_JC_ROWS + u;
+      if (jl >= jn) continue;  // the same for the whole block
+      const float* tj = tab + (size_t)jl * R * TP + 4 * s;
+#pragma unroll
+      for (int r = 0; r < TP; ++r) {
+        const float tf = __shfl_sync(0xffffffffu, cur[u], r * GW + g);
+        const float fl = floorf(tf);
+        const int e = k3_entry(fl);
+        const float x = fmaf(cS, tf - fl, cO) + cX;
+        const float w = fmaf(fmaf(fmaf(cA, x, cB), x, cC), x, cD);
+        const float4 v = *reinterpret_cast<const float4*>(tj + e * TP);
+        acc[r][0] = fmaf(w, v.x, acc[r][0]);
+        acc[r][1] = fmaf(w, v.y, acc[r][1]);
+        acc[r][2] = fmaf(w, v.z, acc[r][2]);
+        acc[r][3] = fmaf(w, v.w, acc[r][3]);
+      }
+    }
+    if (ch == nch - 1) {
+      const int base = p_lo + tile * K3_NT + warp * 32;
+#pragma unroll
+      for (int r = 0; r < TP; ++r) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+#pragma unroll
+          for (int o = TP / 4; o < TP; o *= 2)
+            acc[r][c] += __shfl_xor_sync(0xffffffffu, acc[r][c], o);
+        }
+        const int i = base + r * GW + g;
+        if (d == 0 && i < p_hi) {
+          float* o = out + (size_t)i * t + k0 + 4 * h;
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            if (4 * h + c < tc) o[c] = j0 > 0 ? o[c] + acc[r][c] : acc[r][c];
+        }
+      }
+    }
+    if (tile2 >= ntile) break;
+    tile = tile2;
+    ch = ch2;
+#pragma unroll
+    for (int u = 0; u < K3_JC_ROWS; ++u) cur[u] = k3_clamp(nxt[u], hi);
+  }
+}
+
+// t >= 2. grid (blocks), K3_NT threads. Block b takes points
+// [b n / nb, (b + 1) n / nb) in tiles of K3_NT; passes of K3_TC columns,
+// each in sweeps of jg components (the table's capacity), each after the
+// first adding to out.
+__global__ void __launch_bounds__(K3_NT, K3_BLOCKS_PER_SM)
+apply_sum_rows_kernel(const float* __restrict__ tfrac,
+                      const float* __restrict__ G, float* __restrict__ out,
+                      int J, int n, int t, int m, int jg) {
+  extern __shared__ __align__(16) float tab[];
+  const int p_lo = (int)((long long)blockIdx.x * n / gridDim.x);
+  const int p_hi = (int)((long long)(blockIdx.x + 1) * n / gridDim.x);
+  const int ntile = (p_hi - p_lo + K3_NT - 1) / K3_NT;
+  const float hi = (float)(m + 1);
+  for (int k0 = 0; k0 < t; k0 += K3_TC) {
+    const int tc = min(K3_TC, t - k0), tp = tc > 4 ? 8 : 4;
+    for (int j0 = 0; j0 < J; j0 += jg) {
+      const int jn = min(jg, J - j0);
+      __syncthreads();  // every read of the last sweep's table is done
+      stage_rows(tab, G, j0, jn, t, m, k0, tc, tp);
+      cp_async_wait_all();
+      __syncthreads();
+      if (tp == 8)
+        rows_sweep<8>(tab, tfrac, out, n, t, m, j0, jn, k0, tc, p_lo, p_hi,
+                      ntile, hi);
+      else
+        rows_sweep<4>(tab, tfrac, out, n, t, m, j0, jn, k0, tc, p_lo, p_hi,
+                      ntile, hi);
+    }
+  }
+}
+
+// lets a kernel take more than 48 KB of dynamic shared memory
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 }  // namespace
@@ -254,12 +585,45 @@ extern "C" int rpagp_interp_transpose(const float* tfrac, const float* VT,
   return (int)cudaGetLastError();
 }
 
-// tfrac (J, n), G (J, t, m) contiguous, out rows of stride ld (>= t);
-// t <= 8. Returns cudaGetLastError().
+// tfrac (J, n), G (J, t, m) and out (n, t) contiguous; any J and t,
+// 1 <= m <= M_MAX. One launch. Returns cudaGetLastError() or the error of a
+// refused attribute.
 extern "C" int rpagp_interp_apply_sum(const float* tfrac, const float* G,
                                       float* out, int J, int n, int t, int m,
-                                      int ld, void* stream) {
-  apply_sum_kernel<<<(n + NT - 1) / NT, NT, 0, (cudaStream_t)stream>>>(
-      tfrac, G, out, J, n, t, m, ld);
+                                      void* stream) {
+  if (J < 1 || n < 1 || t < 1 || m < 1 || m > M_MAX)
+    return (int)cudaErrorInvalidValue;
+  // a component's table: m + 5 float4 entries, or m + 8 rows of 4 or 8
+  // floats (at most 33 KB at M_MAX, so jg >= 1)
+  const size_t per = t == 1 ? sizeof(float) * 4 * (m + 5)
+                            : sizeof(float) * (m + 8) * (t > 4 ? 8 : 4);
+  const int jg = (int)(J < (int)(K3_SMEM / per) ? J : K3_SMEM / per);
+  const size_t bytes = per * jg;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  // tiles of K3_NT quads (t = 1) or points
+  const int units = t == 1 ? (n + 3) / 4 : n;
+  const int tiles = (units + K3_NT - 1) / K3_NT;
+  const int blocks =
+      tiles < K3_BLOCKS_PER_SM * sms ? tiles : K3_BLOCKS_PER_SM * sms;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (t == 1) {
+    const bool vec = n % 4 == 0 &&
+                     (reinterpret_cast<size_t>(tfrac) & 15) == 0 &&
+                     (reinterpret_cast<size_t>(out) & 15) == 0;
+    const auto kernel = vec ? apply_sum_shifted_kernel<true>
+                            : apply_sum_shifted_kernel<false>;
+    e = allow_smem(kernel, bytes);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<blocks, K3_NT, bytes, s>>>(tfrac, G, out, J, n, m, jg);
+  } else {
+    e = allow_smem(apply_sum_rows_kernel, bytes);
+    if (e != cudaSuccess) return (int)e;
+    apply_sum_rows_kernel<<<blocks, K3_NT, bytes, s>>>(tfrac, G, out, J, n,
+                                                       t, m, jg);
+  }
   return (int)cudaGetLastError();
 }

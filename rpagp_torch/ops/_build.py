@@ -35,7 +35,7 @@ _SIGNATURES = {
     "rpagp_chol_linv_coop": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "rpagp_chol_linv_coop_grid": [_I, _I, _P, _P],
     "rpagp_interp_transpose": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "rpagp_interp_apply_sum": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "rpagp_interp_apply_sum": [_P, _P, _P, _I, _I, _I, _I, _P],
     "rpagp_gram_mvm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                        _I, _P],
     "rpagp_gram_mvm_grid": [_I, _I, _I, _P, _P],

@@ -16,8 +16,11 @@ are exact adjoints of each other.
 A CPU tensor takes the plain version (the blocked dense plan of
 ops/ski.py: the (J, block, m) interpolation matrix built from tfrac,
 contracted with einsum); a CUDA tensor launches the kernel; anything else
-raises. The wrappers chunk t into launches of at most 8 columns (K3's
-register tile; K2 runs passes of up to 8 inside a launch).
+raises. K2's wrapper chunks t into launches of at most 8 columns (K2
+runs passes of up to 8 inside a launch); K3 takes any t in one launch.
+Both take m <= M_MAX: K3's table of one component in shared memory (33
+KB at m = 1024, t > 4) and K2's per-lane accumulator copies are sized for
+it. Past it the wrappers raise.
 """
 
 from __future__ import annotations
@@ -29,8 +32,8 @@ from . import _build
 # launches of the CUDA kernels, per entry point
 launches = {"interp_transpose": 0, "interp_apply_sum": 0}
 
-T_CHUNK = 8  # columns per launch (csrc/interp.cu T_MAX)
-_M_MAX = 1024  # csrc/interp.cu M_MAX
+T_CHUNK = 8  # K2: columns per launch (csrc/interp.cu T_MAX)
+M_MAX = 1024  # csrc/interp.cu M_MAX: the grid cells both kernels take
 _POINTS_PER_BLOCK = 8192  # K2: points per warp (one partial sum)
 _DENSE_BLOCK = 4096  # plain version: points per dense W block
 
@@ -83,8 +86,8 @@ def interp_transpose_cuda(tfrac, V, m: int):
     if V.ndim != 2 or V.shape[0] != n:
         raise ValueError(f"interp_transpose expects V (n={n}, t), got "
                          f"{tuple(V.shape)}")
-    if not 0 < m <= _M_MAX:
-        raise ValueError(f"interp_transpose supports 0 < m <= {_M_MAX}, got {m}")
+    if not 0 < m <= M_MAX:
+        raise ValueError(f"interp_transpose supports 0 < m <= {M_MAX}, got {m}")
     t = V.shape[1]
     VT = V.t().contiguous()  # (t, n): the kernel's layout
     nchunk = -(-n // _POINTS_PER_BLOCK)
@@ -112,17 +115,15 @@ def interp_apply_sum_cuda(tfrac, G):
         raise ValueError(f"interp_apply_sum expects G (J={J}, t, m), got "
                          f"{tuple(G.shape)}")
     t, m = G.shape[1], G.shape[2]
+    if not 0 < m <= M_MAX:
+        raise ValueError(f"interp_apply_sum supports 0 < m <= {M_MAX}, got {m}")
+    G = G.contiguous()
     out = torch.empty(n, t, dtype=G.dtype, device=G.device)
-    lib = _build.lib()
-    stream = _build.stream_ptr(G.device)
-    for s in range(0, t, T_CHUNK):
-        tc = min(T_CHUNK, t - s)
-        Gc = G[:, s:s + tc].contiguous()
-        err = lib.rpagp_interp_apply_sum(
-            tfrac.data_ptr(), Gc.data_ptr(),
-            out.data_ptr() + s * out.element_size(), J, n, tc, m, t, stream)
-        _build.check(err, "interp_apply_sum kernel")
-        launches["interp_apply_sum"] += 1
+    err = _build.lib().rpagp_interp_apply_sum(
+        tfrac.data_ptr(), G.data_ptr(), out.data_ptr(), J, n, t, m,
+        _build.stream_ptr(G.device))
+    _build.check(err, "interp_apply_sum kernel")
+    launches["interp_apply_sum"] += 1
     return out
 
 

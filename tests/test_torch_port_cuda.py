@@ -456,3 +456,60 @@ def test_build_interp_y_is_one_launch(cuda_device):
     one_1 = cuda_interp.interp_transpose_cuda(
         tf, torch.ones_like(y)[:, None], 256)[:, 0]
     assert torch.equal(uy, one_y) and torch.equal(u1, one_1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["uniform", "crowded"])
+@pytest.mark.parametrize("t", [1, 3, 8, 11, 17])
+@pytest.mark.parametrize("m", [17, 256, cuda_interp.M_MAX])
+def test_interp_apply_sum_matches_plain(cuda_device, kind, t, m):
+    """K3 against its plain version (float64): uniform points and points
+    crowded into three cells, the grid's edges, -100 padding; one launch
+    for any t; rel <= 1e-5, padding rows exactly zero, a repeat bit for
+    bit the same, and K3 the adjoint of K2 to 1e-5."""
+    tf, V, G = _interp_case(5, 60000, m, t, kind, seed=m + 7 * t,
+                            dev=cuda_device)
+    before = cuda_interp.launches["interp_apply_sum"]
+    O = cuda_interp.interp_apply_sum_cuda(tf, G)
+    assert cuda_interp.launches["interp_apply_sum"] - before == 1
+    Op = cuda_interp.interp_apply_sum_plain(tf.double(), G.double())
+    torch.cuda.synchronize()
+    assert _rel(O, Op) <= 1e-5
+    assert bool((O[-500:] == 0).all())
+    assert torch.equal(cuda_interp.interp_apply_sum_cuda(tf, G), O)
+    U = cuda_interp.interp_transpose_cuda(tf, V, m)
+    lhs = float(torch.sum(U.double() * G.double()))
+    rhs = float(torch.sum(V.double() * O.double()))
+    assert abs(lhs - rhs) <= 1e-5 * float(torch.linalg.norm(U.double())
+                                          * torch.linalg.norm(G.double()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 11])
+def test_interp_apply_sum_sweeps_and_unaligned_rows(cuda_device, t):
+    """More components than K3's shared-memory table holds at m = M_MAX
+    (several sweeps over the points, each adding to out), on rows of 16-byte
+    quads (n = 20000) and on rows that are not (n odd, or the storage
+    offset by one float): rel <= 1e-5 against the plain version, padding
+    rows exactly zero."""
+    m, J = cuda_interp.M_MAX, 40
+    for n in (20000, 20001):
+        tf, _, G = _interp_case(J, n, m, t, "uniform", seed=t, dev=cuda_device)
+        shifted = torch.empty(J * n + 1, device=cuda_device)[1:].view(J, n)
+        shifted.copy_(tf)
+        for x in (tf, shifted):
+            O = cuda_interp.interp_apply_sum_cuda(x, G)
+            Op = cuda_interp.interp_apply_sum_plain(x.double(), G.double())
+            torch.cuda.synchronize()
+            assert _rel(O, Op) <= 1e-5
+            assert bool((O[-500:] == 0).all())
+
+
+@pytest.mark.cuda
+def test_interp_apply_sum_rejects_m_past_limit(cuda_device):
+    tf, _, G = _interp_case(2, 1000, cuda_interp.M_MAX + 1, 1, "uniform",
+                            seed=0, dev=cuda_device)
+    before = cuda_interp.launches["interp_apply_sum"]
+    with pytest.raises(ValueError, match="m <="):
+        cuda_interp.interp_apply_sum_cuda(tf, G)
+    assert cuda_interp.launches["interp_apply_sum"] == before
