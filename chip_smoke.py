@@ -13,7 +13,10 @@ ported path through rpagp_torch.runner.run_split at full size:
   tfrac (phase 4), beside `embedding_bag` over precomputed taps;
 - the BBMM dense path on elevators (K4, K5), phases 5-7; phase 5 also
   prints the instruction mix of K4's and K5's inner loops from the built
-  library's SASS.
+  library's SASS;
+- the dense Cholesky path (K1's 512 leaf in the blocked factor of
+  K + s^2 I) on rp_poly_j20 / sml, phase 8, then every other dense spec
+  briefly.
 
     python3 chip_smoke.py
 
@@ -38,6 +41,16 @@ SPEC = os.path.join(ROOT, "specs", "rp_ski_houseelectric_j20.json")
 SPEC_BBMM = os.path.join(ROOT, "specs", "rp_bbmm_elevators.json")
 N_FLAGSHIP_TRAIN = 1_844_352  # synthetic HouseElectric split 0 (k=10)
 N_ELEVATORS_TRAIN, N_ELEVATORS_TEST = 14_939, 1_660  # elevators split 0
+SPEC_DENSE = os.path.join(ROOT, "specs", "rp_poly_j20.json")
+N_SML_TRAIN, N_SML_TEST = 3_723, 414  # synthetic sml split 0 (k=10)
+# test RMSE of the JAX package's run_split on that split after 10 steps
+# (projection key 0, on the CPU), for the reader beside the port's
+JAX_RMSE_SML_10 = 0.8957
+# the dense specs besides rp_poly_j20, run briefly at n_train ~1000
+DENSE_OTHERS = ("rp_poly_j10", "rp_poly_j10_d2", "rp_generalized_mixed",
+                "rp_learned_proj_j10", "exact_rbf", "exact_matern52",
+                "rp_limit", "additive_axes", "rp_sphere_j20_percomp",
+                "rp_bbmm_elevators")
 
 # the card's published peaks (H100 SXM at 700 W): HBM bytes/s, f32 FLOP/s outside the tensor cores, and the SFU's
 # exponentials/s (16 per clock per SM, 132 SMs, 1.98 GHz boost clock)
@@ -462,10 +475,11 @@ def phase2_kernels(results):
                 bound_ms=bms, bound_by=bby, library_ms=lms)
 
 
-def _device_ms(fn, calls, names):
+def _device_ms(fn, calls, names, top=0):
     """torch.profiler over `calls` calls of fn: the device time per call of
     every kernel and copy, and of the kernels whose name holds each of
-    `names`, in ms."""
+    `names`, in ms; with top > 0 also the `top` largest kernels by device
+    time per call, as (name, ms) pairs."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -477,8 +491,13 @@ def _device_ms(fn, calls, names):
     dev = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     total = sum(e.self_device_time_total for e in dev) / 1e3 / calls
-    return total, {k: sum(e.self_device_time_total for e in dev
-                          if k in e.key) / 1e3 / calls for k in names}
+    by = {k: sum(e.self_device_time_total for e in dev
+                 if k in e.key) / 1e3 / calls for k in names}
+    if not top:
+        return total, by
+    largest = sorted(dev, key=lambda e: -e.self_device_time_total)[:top]
+    return total, by, [(e.key, e.self_device_time_total / 1e3 / calls)
+                       for e in largest]
 
 
 def _grad_relerr(ga, gb):
@@ -516,7 +535,7 @@ def phase3_slice():
     Wd = torch.randn(D, 11, generator=gen) / math.sqrt(D)
     y = torch.sin(x @ Wd).sum(1) / math.sqrt(11) + 0.1 * torch.randn(
         n, generator=gen)
-    params0, buf0 = exact_gp.init_model(spec, D, generator=gen)
+    params0, buf0 = exact_gp.init_model(spec, D, generator=gen, device="cpu")
 
     def to(tree, d):  # fresh leaf copies on device d
         return {k: to(v, d) if isinstance(v, dict) else v.to(d, copy=True)
@@ -818,6 +837,7 @@ def phase4_main_path(results):
     for k, v in launches.items():
         check(v > 0, f"kernel {k} was not launched on the main path")
         results[k]["launches"] = v
+        results[k].setdefault("launches_by_path", {})["grid"] = v
     for k in ("rmse", "nll", "mll"):
         check(math.isfinite(m[k]), f"{k} not finite")
     check(m["rmse"] < 0.9, f"rmse {m['rmse']:.4f} >= 0.9: learned nothing")
@@ -1099,7 +1119,8 @@ def phase6_bbmm_mll():
     x = torch.as_tensor(split.train_x[:n])
     y = torch.as_tensor(split.train_y[:n])
     gen = torch.Generator().manual_seed(6)
-    params0, buf0 = exact_gp.init_model(spec, x.shape[1], generator=gen)
+    params0, buf0 = exact_gp.init_model(spec, x.shape[1], generator=gen,
+                                        device="cpu")
     eps_small = torch.randn(spec.precond_rank, spec.num_probes, generator=gen)
     eps_big = torch.randn(n, spec.num_probes, generator=gen)
 
@@ -1212,6 +1233,7 @@ def phase7_bbmm_main_path(results):
     for k, v in launches.items():
         check(v > 0, f"kernel {k} was not launched on the BBMM path")
         results[k]["launches"] = v
+        results[k].setdefault("launches_by_path", {})["bbmm"] = v
     for k in ("rmse", "nll", "mll"):
         check(math.isfinite(m[k]), f"{k} not finite")
     check(m["rmse"] < 0.9, f"rmse {m['rmse']:.4f} >= 0.9: learned nothing")
@@ -1271,6 +1293,238 @@ def phase7_bbmm_main_path(results):
            f"{float(loss.detach()):.5f}")
 
 
+def _dense_split(max_points=None):
+    from rpagp_torch.utils import datasets
+
+    ds = datasets.load_dataset("sml", max_points=max_points)
+    return next(datasets.kfold_splits(ds, k=10, seed=0, equal_train=True))
+
+
+def _zero(counters):
+    for c in counters:
+        for k in c:
+            c[k] = 0
+
+
+def phase8_dense_main_path(results):
+    """The dense Cholesky path through run_split on rp_poly_j20 (J = 20
+    degree-1 RBF components, gaussian projection), synthetic sml split 0
+    (n_train 3723, D = 26, n_test 414): max_iters cut from 1000 to 10.
+    Every MLL forward factors K + s^2 I (padded to 4096) with eight K1
+    leaves. Then at the same size: the steps' syncs, times and device
+    breakdown, the factor against cuSOLVER, the CUDA MLL against the
+    port's float64 CPU one, and the other dense specs at n_train ~1000."""
+    import torch
+
+    from rpagp_torch import runner
+    from rpagp_torch.mll import mll
+    from rpagp_torch.models import exact_gp
+    from rpagp_torch.ops import block_chol, cuda_chol, exact, kernels
+    from rpagp_torch.utils.config import load_spec
+
+    dev = torch.device("cuda")
+    exp = load_spec(SPEC_DENSE)
+    exp = dataclasses.replace(exp, train=dataclasses.replace(exp.train,
+                                                             max_iters=10))
+    split = _dense_split()
+    check(split.train_x.shape == (N_SML_TRAIN, 26)
+          and split.test_x.shape[0] == N_SML_TEST,
+          f"unexpected sml split {split.train_x.shape}")
+    x = torch.as_tensor(split.train_x, device=dev)
+    y = torch.as_tensor(split.train_y, device=dev)
+    n = x.shape[0]
+    # the loss at run_split's initial params (the same seed, projection and
+    # data): the first step's loss
+    params, buffers = exact_gp.init_model(
+        exp.model, x.shape[1], generator=torch.Generator().manual_seed(0),
+        device=dev)
+    with torch.no_grad():
+        loss0 = float(-mll(exp.model, params, buffers, x, y) / n)
+
+    _zero([cuda_chol.launches])
+    torch.cuda.reset_peak_memory_stats()
+    timings = {}
+    m = runner.run_split(exp, split, seed=0, device=dev, timings=timings)
+    torch.cuda.synchronize()
+    launches = dict(cuda_chol.launches)
+    peak = torch.cuda.max_memory_allocated()
+    forwards = m["iterations"] + 1  # the training steps and the posterior
+    say(8, f"run_split rp_poly_j20 on sml split 0 (n_train {n}, n_test "
+           f"{split.test_x.shape[0]}, max_iters 10 of 1000): prepare "
+           f"{timings['prepare_s']:.3f} s, train {timings['train_s']:.3f} s "
+           f"({m['iterations']} steps), posterior {timings['posterior_s']:.3f}"
+           f" s; rmse {m['rmse']:.4f} (the JAX package on the CPU, 10 steps, "
+           f"projection key 0: {JAX_RMSE_SML_10}) nll {m['nll']:.4f}; loss "
+           f"{loss0:.5f} at the first step, best {-m['mll']:.5f}; peak memory "
+           f"{peak / 2**30:.2f} GiB; launches {launches} over {forwards} "
+           f"factorizations")
+    check(launches["chol_linv"] == 8 * forwards,
+          f"K1 leaf launches {launches['chol_linv']} != 8 x {forwards}")
+    check(launches["chol_linv_batched"] == 0, "ladder batch on the dense path")
+    results["chol_linv"].setdefault("launches_by_path", {})["dense"] = \
+        launches["chol_linv"]
+    for k in ("rmse", "nll", "mll"):
+        check(math.isfinite(m[k]), f"{k} not finite")
+    check(-m["mll"] < loss0, f"the loss did not fall: best {-m['mll']:.5f} "
+                             f"first {loss0:.5f}")
+    check(m["rmse"] < 1.0, f"rmse {m['rmse']:.4f} >= 1.0: learned nothing")
+
+    # training steps at the same size: K1 launches and syncs of one step,
+    # then 5 timed (CUDA events) and 3 under torch.profiler
+    leaves = [params["raw_noise"], params["mean_const"],
+              *params["kernel"].values()]
+    for t in leaves:
+        t.requires_grad_(True)
+    opt = torch.optim.Adam(leaves, lr=exp.train.lr)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = -mll(exp.model, params, buffers, x, y) / n
+        loss.backward()
+        opt.step()
+        return loss
+
+    step()  # warm-up
+    _zero([cuda_chol.launches])
+    syncs = _count_syncs(step)
+    check(cuda_chol.launches["chol_linv"] == 8,
+          f"{cuda_chol.launches['chol_linv']} K1 launches in one step, not 8")
+    torch.cuda.reset_peak_memory_stats()
+    events = []
+    for _ in range(5):
+        e0, e1, e2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        e0.record()
+        opt.zero_grad(set_to_none=True)
+        loss = -mll(exp.model, params, buffers, x, y) / n
+        e1.record()
+        loss.backward()
+        opt.step()
+        e2.record()
+        events.append((e0, e1, e2))
+    torch.cuda.synchronize()
+    step_peak = torch.cuda.max_memory_allocated()
+    step_ms = [a.elapsed_time(c) for a, _, c in events]
+    med = statistics.median(step_ms)
+    fwd = statistics.median(a.elapsed_time(b) for a, b, _ in events)
+    say(8, f"5 timed steps: median {med:.2f} ms/step (all "
+           f"{', '.join(f'{v:.2f}' for v in step_ms)}; forward median "
+           f"{fwd:.2f} ms, the rest backward + Adam); peak memory of a step "
+           f"{step_peak / 2**30:.2f} GiB; K1 launches in one step 8; "
+           f"device->host syncs in one step {sum(syncs.values())} {syncs}")
+    check(sum(syncs.values()) == 0, f"host reads in the dense step: {syncs}")
+    busy, by, largest = _device_ms(step, 3, ("chol_linv_coop_kernel",),
+                                   top=8)
+    if busy == 0:
+        say(8, "torch.profiler recorded no device time: the step's device "
+               "breakdown is not measured")
+    else:
+        k1 = by["chol_linv_coop_kernel"]
+        say(8, f"torch.profiler over 3 more steps: device busy {busy:.2f} "
+               f"ms/step (idle {100 * (1 - busy / med):.0f}% of the "
+               f"{med:.2f} ms step); K1's eight leaves {k1:.2f} ms/step "
+               f"({100 * k1 / busy:.1f}% of device time); the largest "
+               f"kernels, ms/step: "
+               + "; ".join(f"{k[:70]} {v:.3f}" for k, v in largest))
+
+    # the dense Khat on the card: symmetry, and the factor against cuSOLVER
+    # (cholesky_ex, the same function) as a yardstick
+    with torch.no_grad():
+        kspec, kp, kb = exp.model.kernel, params["kernel"], buffers["kernel"]
+        Khat = exact.add_jitter(kernels.gram(kspec, kp, kb, x, x),
+                                exact_gp.noise_value(params),
+                                exp.model.jitter)
+        asym = float(torch.max(torch.abs(Khat - Khat.T)))
+        xr = x[:, :8] / 4.0
+        Kr = kernels.gram(kernels.KernelSpec(family="rbf"),
+                          {"raw_lengthscale": torch.zeros(8, device=dev),
+                           "raw_outputscale": torch.zeros((), device=dev)},
+                          {}, xr, xr)
+        asym_r = float(torch.max(torch.abs(Kr - Kr.T)))
+        L = block_chol.blocked_cholesky(Khat)
+        Lc = torch.linalg.cholesky_ex(Khat).L
+        torch.cuda.synchronize()
+        eL = rel(L, Lc)
+        res_b, res_c = rel(L @ L.T, Khat), rel(Lc @ Lc.T, Khat)
+        turns = [(f, cuda_ms(f, iters=10)) for f in (
+            lambda: block_chol.blocked_cholesky(Khat),
+            lambda: torch.linalg.cholesky_ex(Khat)) * 2]
+        bms = statistics.mean(t for i, (_, t) in enumerate(turns) if i % 2 == 0)
+        cms = statistics.mean(t for i, (_, t) in enumerate(turns) if i % 2 == 1)
+    with torch.no_grad():
+        fbusy, fby, flargest = _device_ms(
+            lambda: block_chol.blocked_cholesky(Khat), 3,
+            ("chol_linv_coop_kernel",), top=6)
+    say(8, f"blocked_cholesky under torch.profiler: device {fbusy:.3f} ms a "
+           f"call, K1's leaves {fby['chol_linv_coop_kernel']:.3f}; the "
+           f"largest kernels, ms a call: "
+           + "; ".join(f"{k[:70]} {v:.3f}" for k, v in flargest))
+    say(8, f"Khat ({n}, {n}) on the card: exactly symmetric "
+           f"{asym == 0.0} (max |K - K^T| {asym:.1e}; the full-D rbf Gram "
+           f"by the sqdist GEMM: {asym_r == 0.0}, {asym_r:.1e}); "
+           f"blocked_cholesky (8 K1 leaves, padded to 4096) in turns "
+           f"{', '.join(f'{t:.3f}' for i, (_, t) in enumerate(turns) if i % 2 == 0)}"
+           f" ms against cuSOLVER cholesky_ex "
+           f"{', '.join(f'{t:.3f}' for i, (_, t) in enumerate(turns) if i % 2 == 1)}"
+           f" ms (means {bms:.3f}, {cms:.3f}); rel L vs cuSOLVER's {eL:.2e}, "
+           f"|LL^T - Khat|/|Khat| {res_b:.2e} (cuSOLVER's {res_c:.2e})")
+    check(res_b <= 1e-5, f"blocked_cholesky residual {res_b:.2e}")
+    del Khat, L, Lc, Kr
+
+    # one CUDA value+grad against the port's float64 CPU computation of the
+    # same inputs (run_split's initial params, projection and data)
+    p0, b0 = exact_gp.init_model(exp.model, x.shape[1],
+                                 generator=torch.Generator().manual_seed(0),
+                                 device="cpu")
+
+    def to(tree, d, dtype):
+        return {k: to(v, d, dtype) if isinstance(v, dict)
+                else v.to(d, dtype, copy=True) for k, v in tree.items()}
+
+    out = {}
+    for d, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+        p, b = to(p0, d, dtype), to(b0, d, dtype)
+        lv = [p["raw_noise"], p["mean_const"], *p["kernel"].values()]
+        for t in lv:
+            t.requires_grad_(True)
+        t0 = time.perf_counter()
+        v = exact_gp.exact_mll(exp.model, p, b,
+                               torch.as_tensor(split.train_x).to(d, dtype),
+                               torch.as_tensor(split.train_y).to(d, dtype))
+        v.backward()
+        out[d] = (float(v.detach()), [t.grad for t in lv],
+                  time.perf_counter() - t0)
+    (vg, gg, sg), (vc, gc, sc) = out["cuda"], out["cpu"]
+    erel = abs(vg - vc) / abs(vc)
+    grel = _grad_relerr(gg, gc)
+    say(8, f"exact_mll J=20 D=26 n={n}: value cuda f32 {vg:.8g} cpu f64 "
+           f"{vc:.10g} rel {erel:.2e}; grad relerr {grel:.2e}; value+grad "
+           f"{sg:.2f} s cuda, {sc:.2f} s cpu")
+    check(erel <= 1e-5, f"exact_mll value rel {erel:.2e} > 1e-5")
+    check(grel <= 1e-4, f"exact_mll grad relerr {grel:.2e} > 1e-4")
+
+    # every other dense spec: 3 steps and a posterior at n_train ~1000
+    # (above 512, so K1 factors the leaves)
+    small = _dense_split(max_points=1111)
+    ns = small.train_x.shape[0]
+    for name in DENSE_OTHERS:
+        e = load_spec(os.path.join(ROOT, "specs", f"{name}.json"))
+        e = dataclasses.replace(e, train=dataclasses.replace(e.train,
+                                                             max_iters=3))
+        _zero([cuda_chol.launches])
+        t0 = time.perf_counter()
+        r = runner.run_split(e, small, seed=0, device=dev)
+        torch.cuda.synchronize()
+        k1 = cuda_chol.launches["chol_linv"]
+        say(8, f"{name} on sml (n_train {ns}): rmse {r['rmse']:.4f} nll "
+               f"{r['nll']:.4f} mll {r['mll']:.5f}, {r['iterations']} steps "
+               f"+ posterior in {time.perf_counter() - t0:.2f} s; K1 leaves "
+               f"{k1}")
+        for k in ("rmse", "nll"):
+            check(math.isfinite(r[k]), f"{name}: {k} not finite")
+        check(k1 == 2 * (r["iterations"] + 1),
+              f"{name}: {k1} K1 leaves for {r['iterations']} steps")
+
+
 def main():
     import torch
 
@@ -1287,6 +1541,7 @@ def main():
     phase5_gram_kernels(results)
     phase6_bbmm_mll()
     phase7_bbmm_main_path(results)
+    phase8_dense_main_path(results)
     source = {"chol_linv": "rpagp_torch/csrc/chol_linv_coop.cu",
               "chol_linv_batched": "rpagp_torch/csrc/chol_linv_coop.cu",
               "interp_transpose": "rpagp_torch/csrc/interp.cu",
@@ -1301,8 +1556,12 @@ def main():
                 "gram_mvm_bwd": "rpagp/ops/pallas_gram.py:173"}
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
+    # launches: on the grid or BBMM path's run_split; launches_by_path:
+    # on each path's run_split that launched the kernel (K1's leaf on the
+    # grid and dense paths)
     kernels = [{"name": k, "route": "cuda", "source": source[k],
-                "replaces": replaces[k], **{f: r[f] for f in keys}}
+                "replaces": replaces[k], **{f: r[f] for f in keys},
+                "launches_by_path": r["launches_by_path"]}
                for k, r in results.items()]
     say("done", f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

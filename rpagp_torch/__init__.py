@@ -10,7 +10,11 @@ each path runs written in CUDA (csrc/):
 - the BBMM dense path (ops/iterative.py: batched PCG + SLQ training with
   the probe-estimator backward, the LOVE and chunked-CG posteriors): K4
   gram_mvm and K5 gram_mvm_bwd (ops/cuda_gram.py), the fused projected
-  Gram x V product and its backward.
+  Gram x V product and its backward;
+- the dense Cholesky branch (ops/exact.py, models/exact_gp.py: exact
+  MLL, posterior, covariance, samples) with the full-D and limit kernels
+  and every projection family: K1 chol_linv on each 512 leaf of
+  block_chol.blocked_cholesky.
 See ROADMAP.md for the rest.
 
 Numerics: f32 throughout with TF32 off. The grid solver's Cholesky

@@ -1,19 +1,19 @@
 """Marginal log-likelihood and posterior with the JAX package's size
-dispatch (subset of rpagp/mll.py): the exact grid-solver branch and the
-BBMM branch (CG + SLQ, LOVE). The dense Cholesky branch (n <=
-max_cholesky_size without SKI) is ROADMAP slice 8."""
+dispatch (port of rpagp/mll.py): the dense Cholesky branch (n <=
+max_cholesky_size without SKI), the exact grid-solver branch and the
+BBMM branch (CG + SLQ, LOVE)."""
 
 from __future__ import annotations
 
+from .models import exact_gp
 from .models.exact_gp import ModelSpec
 from .ops import grid_solve
 
 
 def _solver(spec: ModelSpec, n: int) -> str:
-    """"grid" or "iterative", as rpagp/mll.py dispatches."""
+    """"exact", "grid" or "iterative", as rpagp/mll.py dispatches."""
     if n <= spec.max_cholesky_size and not spec.kernel.ski:
-        raise NotImplementedError(
-            "dense Cholesky MLL/posterior: ROADMAP slice 8")
+        return "exact"
     return "grid" if grid_solve.use_grid_solver(spec, n) else "iterative"
 
 
@@ -22,7 +22,10 @@ def mll(spec: ModelSpec, params, buffers, x, y, generator=None):
     buffers from exact_gp.prepare_buffers on this split; the BBMM branch
     draws its probes from `generator` (a torch.Generator on x's device;
     seed 0 when None)."""
-    if _solver(spec, x.shape[0]) == "grid":
+    solver = _solver(spec, x.shape[0])
+    if solver == "exact":
+        return exact_gp.exact_mll(spec, params, buffers, x, y)
+    if solver == "grid":
         return grid_solve.grid_mll(spec, params, buffers, x, y)
     from .ops.iterative import iterative_mll
 
@@ -32,7 +35,11 @@ def mll(spec: ModelSpec, params, buffers, x, y, generator=None):
 def posterior(spec: ModelSpec, params, buffers, x_train, y_train, x_test,
               observation_noise: bool = True):
     """Posterior predictive (mean, var)."""
-    if _solver(spec, x_train.shape[0]) == "grid":
+    solver = _solver(spec, x_train.shape[0])
+    if solver == "exact":
+        return exact_gp.predict(spec, params, buffers, x_train, y_train,
+                                x_test, observation_noise=observation_noise)
+    if solver == "grid":
         return grid_solve.grid_posterior(spec, params, buffers, x_train,
                                          y_train, x_test,
                                          observation_noise=observation_noise)
@@ -44,13 +51,49 @@ def posterior(spec: ModelSpec, params, buffers, x_train, y_train, x_test,
 
 def make_predictor(spec: ModelSpec, params, buffers, x_train, y_train,
                    observation_noise: bool = True):
-    """Cached predictor of the BBMM branch (mean cache + LOVE cache, then
-    one cross-kernel MVM per call): predict(x_test) -> (mu, var). The grid
-    branch's make_grid_predictor is ROADMAP slice 5c."""
-    if _solver(spec, x_train.shape[0]) == "grid":
+    """Cached predictor: factor once (the Cholesky and mean cache of the
+    exact branch; the CG mean cache and LOVE cache of the BBMM branch),
+    then predict(x_test) -> (mu, var) per batch. The grid branch's
+    make_grid_predictor is ROADMAP queue 1 item 1."""
+    solver = _solver(spec, x_train.shape[0])
+    if solver == "exact":
+        return exact_gp.make_predictor(spec, params, buffers, x_train,
+                                       y_train,
+                                       observation_noise=observation_noise)
+    if solver == "grid":
         raise NotImplementedError(
-            "grid_solve.make_grid_predictor: ROADMAP slice 5c")
+            "grid_solve.make_grid_predictor: ROADMAP queue 1 item 1")
     from .ops.iterative import make_predictor as _iter_mp
 
     return _iter_mp(spec, params, buffers, x_train, y_train,
                     observation_noise=observation_noise)
+
+
+def posterior_cov(spec: ModelSpec, params, buffers, x_train, y_train, x_test,
+                  observation_noise: bool = False):
+    """Posterior (mean, full covariance) at a modest test batch. The exact
+    branch is ported; the grid branch's grid_posterior_cov is ROADMAP
+    queue 1 item 1, the BBMM branch's iterative_posterior_cov queue 1
+    item 3."""
+    solver = _solver(spec, x_train.shape[0])
+    if solver == "grid":
+        raise NotImplementedError(
+            "grid_solve.grid_posterior_cov: ROADMAP queue 1 item 1")
+    if solver == "iterative":
+        raise NotImplementedError(
+            "iterative.iterative_posterior_cov: ROADMAP queue 1 item 3")
+    return exact_gp.predict_cov(spec, params, buffers, x_train, y_train,
+                                x_test, observation_noise=observation_noise)
+
+
+def sample_posterior(spec: ModelSpec, params, buffers, x_train, y_train,
+                     x_test, generator=None, num_samples: int = 8,
+                     observation_noise: bool = False, eps=None):
+    """Joint posterior draws at x_test, (num_samples, n_test): normals from
+    `generator` (on x_test's device), or `eps` (num_samples, n_test)."""
+    from .ops.exact import mvn_sample
+
+    mu, cov = posterior_cov(spec, params, buffers, x_train, y_train, x_test,
+                            observation_noise=observation_noise)
+    return mvn_sample(mu, cov, num_samples, jitter=spec.jitter,
+                      generator=generator, eps=eps)

@@ -1,11 +1,13 @@
-"""Exact GP model: mean + projected kernel + Gaussian likelihood
-(subset of rpagp/models/exact_gp.py: the grid-solver and BBMM paths).
+"""Exact GP model: mean + kernel + Gaussian likelihood (port of
+rpagp/models/exact_gp.py: the dense Cholesky branch, and the prepare step
+of the grid-solver and BBMM paths).
 
 The model is a static `ModelSpec` plus two dicts of tensors:
   params:  {"raw_noise", "mean_const", "kernel": {"raw_lengthscale",
-            "raw_outputscale"}}
-  buffers: {"kernel": {"proj"}} plus, after prepare_buffers, the SKI
-           geometry and the per-dataset grid caches.
+            "raw_outputscale"[, "proj"]}}
+  buffers: {"kernel": {"proj"}} (projection kernels) plus, after
+           prepare_buffers, the SKI geometry and the per-dataset grid
+           caches.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import dataclasses
 
 import torch
 
-from ..ops import kernels
+from ..ops import exact, kernels
 from ..ops.kernels import KernelSpec
 from ..utils.transforms import softplus
 
@@ -42,10 +44,11 @@ class ModelSpec:
 
 
 def init_model(spec: ModelSpec, D: int, generator=None, proj=None,
-               device="cpu"):
-    """(params, buffers) for a fresh model; raw values start at 0 (the
-    GPyTorch defaults). proj: an explicit projection matrix, else one is
-    drawn from `generator`."""
+               device="cuda"):
+    """(params, buffers) for a fresh model on `device` (the card unless the
+    caller asks for the CPU); raw values start at 0 (the GPyTorch
+    defaults). proj: an explicit projection matrix, else one is drawn from
+    `generator`."""
     kp, kb = kernels.init_kernel_params(spec.kernel, D, generator=generator,
                                         proj=proj, device=device)
     params = {"raw_noise": torch.zeros((), device=device), "kernel": kp}
@@ -96,3 +99,62 @@ def mean_fn(spec: ModelSpec, params, x):
     if spec.mean == "constant":
         return ones * params["mean_const"]
     return ones * 0.0
+
+
+def exact_mll(spec: ModelSpec, params, buffers, x, y):
+    """Exact Cholesky marginal log-likelihood (the total over n points)."""
+    K = kernels.gram(spec.kernel, params["kernel"], buffers["kernel"], x, x)
+    yc = y - mean_fn(spec, params, x)
+    return exact.cholesky_mll(K, yc, noise_value(params), spec.jitter)
+
+
+def _posterior_cache(spec: ModelSpec, params, buffers, x_train, y_train):
+    """(noise, L, alpha) of the exact posterior at these params."""
+    K = kernels.gram(spec.kernel, params["kernel"], buffers["kernel"],
+                     x_train, x_train)
+    yc = y_train - mean_fn(spec, params, x_train)
+    noise = noise_value(params)
+    L, alpha = exact.cholesky_posterior_cache(K, yc, noise, spec.jitter)
+    return noise, L, alpha
+
+
+def make_predictor(spec: ModelSpec, params, buffers, x_train, y_train,
+                   observation_noise: bool = True):
+    """Cached exact predictor: factor K + s^2 I and the mean cache once,
+    return predict(x_test) -> (mu, var) for repeated test batches."""
+    kspec, kp, kb = spec.kernel, params["kernel"], buffers["kernel"]
+    noise, L, alpha = _posterior_cache(spec, params, buffers, x_train,
+                                       y_train)
+
+    def predict(x_test):
+        K_star = kernels.gram(kspec, kp, kb, x_test, x_train)
+        k_diag = kernels.gram_diag(kspec, kp, kb, x_test)
+        mean_delta, var = exact.posterior_from_cache(
+            K_star, k_diag, L, alpha,
+            noise=noise if observation_noise else None)
+        return mean_delta + mean_fn(spec, params, x_test), var
+
+    return predict
+
+
+def predict(spec: ModelSpec, params, buffers, x_train, y_train, x_test,
+            observation_noise: bool = True):
+    """Posterior predictive (mean, var) at x_test by the exact Cholesky
+    path: the mean cache, the cross-covariance mean, the whitened
+    variance, and the observation noise when asked for."""
+    return make_predictor(spec, params, buffers, x_train, y_train,
+                          observation_noise=observation_noise)(x_test)
+
+
+def predict_cov(spec: ModelSpec, params, buffers, x_train, y_train, x_test,
+                observation_noise: bool = False):
+    """Posterior (mean, full covariance) at x_test by the exact Cholesky
+    path."""
+    kspec, kp, kb = spec.kernel, params["kernel"], buffers["kernel"]
+    noise, L, alpha = _posterior_cache(spec, params, buffers, x_train,
+                                       y_train)
+    K_star = kernels.gram(kspec, kp, kb, x_test, x_train)
+    K_ss = kernels.gram(kspec, kp, kb, x_test, x_test)
+    cov = exact.posterior_cov_from_cache(
+        K_star, K_ss, L, noise=noise if observation_noise else None)
+    return K_star @ alpha + mean_fn(spec, params, x_test), cov

@@ -1,7 +1,10 @@
-"""Gaussian log-density helpers (subset of rpagp/ops/exact.py).
+"""Exact GP inference: the dense Cholesky marginal log-likelihood and
+posterior (port of rpagp/ops/exact.py).
 
-Only what the grid path needs: the constant and the predictive NLL. The
-dense Cholesky MLL and posterior are ROADMAP slice 8.
+The factor is block_chol.blocked_cholesky: above its 512 block, GEMMs
+around K1 on each diagonal leaf (ops/cuda_chol.py); at or below it, the
+builtin Cholesky, as in the JAX package. Gradients are plain autograd
+through the factor, with K1's closed-form VJP on the leaves.
 """
 
 from __future__ import annotations
@@ -10,7 +13,77 @@ import math
 
 import torch
 
+from .block_chol import blocked_cholesky, blocked_solve_triangular
+
 LOG_2PI = 1.8378770664093453
+
+
+def _eye(n, like):
+    return torch.eye(n, dtype=like.dtype, device=like.device)
+
+
+def add_jitter(K, noise, jitter: float = 1e-6):
+    """K + (noise + jitter) I."""
+    return K + (noise + jitter) * _eye(K.shape[-1], K)
+
+
+def cholesky_mll(K, y_centered, noise, jitter: float = 1e-6):
+    """Exact marginal log-likelihood (the total, not per point):
+    -1/2 [y^T (K + s^2 I)^{-1} y + logdet(K + s^2 I) + n log 2 pi]."""
+    n = y_centered.shape[0]
+    L = blocked_cholesky(add_jitter(K, noise, jitter))
+    alpha = torch.cholesky_solve(y_centered[:, None], L)[:, 0]
+    inv_quad = y_centered @ alpha
+    logdet = 2.0 * torch.sum(torch.log(torch.diagonal(L)))
+    return -0.5 * (inv_quad + logdet + n * LOG_2PI)
+
+
+def cholesky_posterior_cache(K_train, y_centered, noise,
+                             jitter: float = 1e-6):
+    """(L, alpha): the factor of K + s^2 I and the mean cache
+    alpha = (K + s^2 I)^{-1} y_c, computed once per evaluation."""
+    L = blocked_cholesky(add_jitter(K_train, noise, jitter))
+    alpha = torch.cholesky_solve(y_centered[:, None], L)[:, 0]
+    return L, alpha
+
+
+def posterior_from_cache(K_star, k_diag_star, L, alpha, noise=None):
+    """Posterior (mean_delta, var) at the test points from the (L, alpha)
+    cache. K_star: (n_test, n_train); k_diag_star: (n_test,) prior
+    diagonal. mean_delta leaves out the mean function; var is the latent
+    variance, floored at 1e-10, plus `noise` when given."""
+    mean = K_star @ alpha
+    v = blocked_solve_triangular(L, K_star.T)  # L^{-1} K_star^T
+    var = torch.clamp(k_diag_star - torch.sum(v * v, dim=0), min=1e-10)
+    if noise is not None:
+        var = var + noise
+    return mean, var
+
+
+def posterior_cov_from_cache(K_star, K_star_star, L, noise=None):
+    """Full latent posterior covariance K** - v^T v, v = L^{-1} K*^T,
+    symmetrised, plus `noise` on the diagonal when given."""
+    v = blocked_solve_triangular(L, K_star.T)
+    cov = K_star_star - v.T @ v
+    cov = 0.5 * (cov + cov.T)
+    if noise is not None:
+        cov = cov + noise * _eye(cov.shape[0], cov)
+    return cov
+
+
+def mvn_sample(mean, cov, num_samples: int, jitter: float = 1e-6,
+               generator=None, eps=None):
+    """(num_samples, n) draws from N(mean, cov) through the builtin Cholesky
+    of cov + jitter I (NaN where it fails, as the JAX package's). The
+    standard normals are `eps` (num_samples, n) when given, else drawn
+    from `generator` (a torch.Generator on mean's device)."""
+    n = mean.shape[0]
+    L, info = torch.linalg.cholesky_ex(cov + jitter * _eye(n, cov))
+    L = torch.where(info == 0, L, torch.full_like(L, float("nan")))
+    if eps is None:
+        eps = torch.randn(num_samples, n, generator=generator,
+                          dtype=mean.dtype, device=mean.device)
+    return mean[None, :] + eps @ L.T
 
 
 def gaussian_nll(y_true, mean, var):

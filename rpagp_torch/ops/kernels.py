@@ -1,9 +1,11 @@
-"""Kernel specification, the projected Gram and the blocked kernel MVM
-(subset of rpagp/ops/kernels.py: the projection family).
+"""Kernel specification, the dense Gram and the blocked kernel MVM
+(port of rpagp/ops/kernels.py): the full-D stationary kernels, the
+closed-form J -> inf limit of the RPA kernel, and the projected additive
+kernel.
 
 A kernel is a static `KernelSpec` plus dicts of tensors: params
-{"raw_lengthscale", "raw_outputscale"[, "proj"]} and buffers {"proj"}.
-Full-D and limit kernels are ROADMAP slice 8.
+{"raw_lengthscale", "raw_outputscale"[, "proj"]} and buffers {"proj"}
+(projection kernels only).
 """
 
 from __future__ import annotations
@@ -16,6 +18,11 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..utils.transforms import softplus
+
+FULL_D_FAMILIES = ("rbf", "matern12", "matern32", "matern52")
+# the J -> inf limit of the RPA kernel for gaussian projections and an RBF
+# base (arXiv:1912.12834 Thm 1): os / sqrt(1 + |x - x'|^2 / (D l^2))
+LIMIT_FAMILIES = ("rp_limit_rbf",)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,23 +99,30 @@ def _get_proj(params, buffers):
 
 
 def init_kernel_params(spec: KernelSpec, D: int, generator=None, proj=None,
-                       device="cpu"):
-    """(params, buffers) for a projection kernel; raw values start at 0.
-    proj: an explicit (D, M) projection (tests pass the JAX package's);
-    otherwise gen_rp draws one from `generator`."""
+                       device="cuda"):
+    """(params, buffers) for a kernel; raw values start at 0 (the GPyTorch
+    defaults). A full-D kernel has one lengthscale per input dimension
+    (ard) or one shared; the limit kernel one shared. A projection kernel
+    takes `proj`, an explicit (D, M) projection used as given (tests pass
+    the JAX package's), or else draws one from `generator` on the CPU with
+    gen_rp, spaced by space_equally when spec.space_proj, so that it does
+    not depend on the device."""
+    zeros = lambda *s: torch.zeros(s, dtype=torch.float32, device=device)
+    if spec.family in FULL_D_FAMILIES:
+        return {"raw_lengthscale": zeros(D if spec.ard else 1),
+                "raw_outputscale": zeros()}, {}
+    if spec.family in LIMIT_FAMILIES:
+        return {"raw_lengthscale": zeros(1), "raw_outputscale": zeros()}, {}
     if not spec.is_projection:
-        raise NotImplementedError(
-            f"kernel family {spec.family!r}: only projection kernels are "
-            "ported (full-D kernels are ROADMAP slice 8)")
-    if spec.space_proj:
-        raise NotImplementedError("space_proj: ROADMAP slice 8")
+        raise ValueError(f"unknown kernel family {spec.family!r}")
     if proj is None:
-        from ..projections import gen_rp
+        from ..projections import gen_rp, space_equally
 
         proj = gen_rp(D, spec.total_proj_dims, spec.proj_dist,
                       generator=generator)
+        if spec.space_proj:
+            proj, _ = space_equally(proj)
     proj = torch.as_tensor(proj, dtype=torch.float32).to(device)
-    zeros = lambda *s: torch.zeros(s, dtype=torch.float32, device=device)
     params = {
         "raw_lengthscale": zeros(spec.num_lengthscales),
         "raw_outputscale": (zeros(spec.J) if spec.per_component_scale
@@ -131,9 +145,12 @@ def _component_scales(spec: KernelSpec, params):
 
 
 def gram_diag(spec: KernelSpec, params, buffers, x):
-    """diag K(x, x): k1d(0) = 1 for every base, so sum_j w_j per point."""
-    w = _component_scales(spec, params)
-    return torch.ones(x.shape[0], dtype=x.dtype, device=x.device) * torch.sum(w)
+    """diag K(x, x): k(0) = 1 for every stationary piece, so the
+    outputscale per point (the sum of the w_j for a projection kernel)."""
+    ones = torch.ones(x.shape[0], dtype=x.dtype, device=x.device)
+    if not spec.is_projection:
+        return ones * softplus(params["raw_outputscale"])
+    return ones * torch.sum(_component_scales(spec, params))
 
 
 def _component_groups(spec: KernelSpec):
@@ -192,13 +209,50 @@ def _projection_gram(spec: KernelSpec, params, buffers, x1, x2):
     return out
 
 
+def _sqdist(u1, u2, same: bool):
+    """|u1_i - u2_k|^2 (n, m) by |u1|^2 + |u2|^2 - 2 u1 u2^T, clamped at 0,
+    with exact zeros on the diagonal when `same` (x2 is x1)."""
+    sq = (torch.sum(u1 * u1, dim=-1)[:, None]
+          + torch.sum(u2 * u2, dim=-1)[None, :] - 2.0 * (u1 @ u2.T))
+    sq = torch.clamp(sq, min=0.0)
+    if same:
+        n = u1.shape[0]
+        sq = sq * (1.0 - torch.eye(n, dtype=sq.dtype, device=sq.device))
+    return sq
+
+
+def _full_d_gram(spec: KernelSpec, params, x1, x2):
+    """Full-D stationary Gram (n, m) on lengthscale-scaled inputs; the
+    Matern families take r = sqrt(sq + 1e-20), finite in reverse mode at
+    r = 0."""
+    ls = softplus(params["raw_lengthscale"])  # (D,) or (1,)
+    sq = _sqdist(x1 / ls, x2 / ls, x2 is x1)
+    if spec.family == "rbf":
+        k = torch.exp(-0.5 * sq)
+    else:
+        k = _k1d(spec.family, torch.sqrt(sq + 1e-20))
+    return softplus(params["raw_outputscale"]) * k
+
+
+def _limit_gram(spec: KernelSpec, params, x1, x2):
+    """The closed-form J -> inf RPA limit kernel (n, m):
+    os / sqrt(1 + |x - x'|^2 / (D l^2)), one shared lengthscale."""
+    ls = softplus(params["raw_lengthscale"])[0]
+    D = x1.shape[1]
+    sq = _sqdist(x1, x2, x2 is x1)
+    return softplus(params["raw_outputscale"]) * torch.rsqrt(
+        1.0 + sq / (D * ls * ls))
+
+
 def gram(spec: KernelSpec, params, buffers, x1, x2):
-    """Dense Gram matrix K(x1, x2), (n, m)."""
+    """Dense Gram matrix K(x1, x2), (n, m). Pass the same tensor twice for
+    K(x, x): the full-D and limit kernels then put exact zeros on the
+    diagonal of the squared distances."""
     if spec.is_projection:
         return _projection_gram(spec, params, buffers, x1, x2)
-    raise NotImplementedError(
-        f"kernel family {spec.family!r}: full-D and limit kernels are "
-        "ROADMAP slice 8")
+    if spec.family in LIMIT_FAMILIES:
+        return _limit_gram(spec, params, x1, x2)
+    return _full_d_gram(spec, params, x1, x2)
 
 
 def mvm(spec: KernelSpec, params, buffers, x1, x2, V, block_rows: int = 2048,

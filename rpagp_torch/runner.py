@@ -1,8 +1,10 @@
 """Experiment runner CLI: datasets x CV splits -> CSV of RMSE/NLL/time
-(port of rpagp/runner.py, single device: the exact grid-solver path and
-the BBMM path).
+(port of rpagp/runner.py, single device: the dense Cholesky path, the
+exact grid-solver path and the BBMM path).
 
 Usage:
+  python -m rpagp_torch.runner --model_spec specs/rp_poly_j20.json \
+      --datasets sml --splits 10 --max_splits 1
   python -m rpagp_torch.runner --model_spec specs/rp_ski_houseelectric_j20.json \
       --datasets houseelectric --splits 10 --max_splits 1
   python -m rpagp_torch.runner --model_spec specs/rp_bbmm_elevators.json \
@@ -72,8 +74,9 @@ def run_split(exp: ExperimentSpec, split, seed: int = 0, device="cuda",
     _sync(device)
     t_prepare = time.perf_counter() - tP
 
-    # the grid solver is deterministic; the BBMM loss draws new probes
-    # every step and the trainer smooths its patience with an EMA
+    # the dense Cholesky and grid solvers are deterministic; the BBMM
+    # loss draws new probes every step and the trainer smooths its
+    # patience with an EMA
     grid = grid_solve.use_grid_solver(spec, n)
     iterative = (n > spec.max_cholesky_size or spec.kernel.ski) and not grid
     gen_probes = None
@@ -121,8 +124,8 @@ def run_split(exp: ExperimentSpec, split, seed: int = 0, device="cuda",
 
 def main(argv=None):
     ap = argparse.ArgumentParser(
-        description="RPA-GP experiment runner (PyTorch port: exact grid and "
-                    "BBMM paths)")
+        description="RPA-GP experiment runner (PyTorch port: dense "
+                    "Cholesky, exact grid and BBMM paths)")
     ap.add_argument("--model_spec", required=True, help="path to JSON model spec")
     ap.add_argument("--datasets", nargs="+", required=True)
     ap.add_argument("--splits", type=int, default=10, help="k for k-fold CV")

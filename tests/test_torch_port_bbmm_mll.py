@@ -159,9 +159,10 @@ def test_mll_dispatch_takes_the_bbmm_branch():
     v2 = iterative.iterative_mll(spec, p, b, xt, yt,
                                  torch.Generator().manual_seed(5))
     assert float(v1) == float(v2) and math.isfinite(float(v1))
+    # at or below max_cholesky_size the same call is the dense Cholesky MLL
     small = dataclasses.replace(spec, max_cholesky_size=10**6)
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        tmll.mll(small, p, b, xt, yt)
+    assert float(tmll.mll(small, p, b, xt, yt)) == float(
+        exact_gp.exact_mll(small, p, b, xt, yt))
     with pytest.raises(NotImplementedError, match="precond_refresh"):
         exact_gp.prepare_buffers(dataclasses.replace(spec, precond_refresh=5),
                                  p, b, xt)

@@ -7,6 +7,8 @@ machine without it; there, skip tests/conftest.py (which imports jax):
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py -q
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -318,7 +320,7 @@ def test_mvm_launches_kernels_past_one_launchs_components(cuda_device):
     spec = KernelSpec.polynomial(J=65, d=1)
     assert cuda_gram.supports(spec)
     gen = torch.Generator().manual_seed(0)
-    kp, kb = init_kernel_params(spec, 5, generator=gen)
+    kp, kb = init_kernel_params(spec, 5, generator=gen, device="cpu")
     rng = np.random.default_rng(5)
     x = torch.from_numpy(rng.standard_normal((300, 5)).astype(np.float32))
     V = torch.from_numpy(rng.standard_normal((300, 3)).astype(np.float32))
@@ -513,3 +515,62 @@ def test_interp_apply_sum_rejects_m_past_limit(cuda_device):
     with pytest.raises(ValueError, match="m <="):
         cuda_interp.interp_apply_sum_cuda(tf, G)
     assert cuda_interp.launches["interp_apply_sum"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["projection", "rbf", "matern52",
+                                    "rp_limit_rbf"])
+def test_dense_mll_matches_float64_cpu(cuda_device, family):
+    """The dense Cholesky MLL (exact_gp.exact_mll) at n = 1000 on the card,
+    its factor padded to 1024 and run as two K1 leaves, against the same
+    computation in float64 on the CPU: value rel <= 1e-5, gradient relerr
+    <= 1e-4. K1's VJP assumes a symmetric input and the factor reads only
+    the lower triangle; the Gram of the sqdist identity comes from a GEMM
+    that need not return an exactly symmetric cross term, so the test
+    records whether it did and holds the gradient to the bar either way
+    (the gradient wrt the params sums K's entries in symmetric pairs)."""
+    from rpagp_torch.models import exact_gp
+    from rpagp_torch.models.exact_gp import ModelSpec
+    from rpagp_torch.ops import kernels
+    from rpagp_torch.ops.kernels import KernelSpec
+
+    kspec = (KernelSpec.polynomial(J=20) if family == "projection"
+             else KernelSpec(family=family, ard=family == "rbf"))
+    spec = ModelSpec(kernel=kspec)
+    rng = np.random.default_rng(8)
+    n, D = 1000, 12
+    x = rng.standard_normal((n, D)).astype(np.float32)
+    y = (np.sin(x @ rng.standard_normal(D) / 3.0)
+         + 0.1 * rng.standard_normal(n)).astype(np.float32)
+    p0, b0 = exact_gp.init_model(spec, D,
+                                 generator=torch.Generator().manual_seed(3),
+                                 device="cpu")
+    p0["kernel"]["raw_lengthscale"] += torch.from_numpy(
+        0.3 * rng.standard_normal(p0["kernel"]["raw_lengthscale"].shape)
+        .astype(np.float32))
+    out = {}
+    for d, dtype in ((cuda_device, torch.float32), ("cpu", torch.float64)):
+        def to(tree):
+            return {k: to(v) if isinstance(v, dict)
+                    else v.to(d, dtype, copy=True) for k, v in tree.items()}
+
+        p, b = to(p0), to(b0)
+        leaves = [p["raw_noise"], p["mean_const"], *p["kernel"].values()]
+        for t in leaves:
+            t.requires_grad_(True)
+        xd = torch.from_numpy(x).to(d, dtype)
+        before = cuda_chol.launches["chol_linv"]
+        v = exact_gp.exact_mll(spec, p, b, xd, torch.from_numpy(y).to(d, dtype))
+        v.backward()
+        if d == cuda_device:
+            assert cuda_chol.launches["chol_linv"] == before + 2
+            K = kernels.gram(kspec, p["kernel"], b["kernel"], xd, xd).detach()
+            print(f"{family}: K exactly symmetric on the card "
+                  f"{torch.equal(K, K.T)}, max |K - K^T| "
+                  f"{float(torch.max(torch.abs(K - K.T))):.1e}")
+        out[d == "cpu"] = (float(v.detach()), [t.grad for t in leaves])
+    (vg, gg), (vc, gc) = out[False], out[True]
+    assert abs(vg - vc) <= 1e-5 * abs(vc)
+    num = sum(float(((a.double().cpu() - b) ** 2).sum()) for a, b in zip(gg, gc))
+    den = sum(float((b ** 2).sum()) for b in gc)
+    assert math.sqrt(num / den) <= 1e-4
