@@ -16,7 +16,16 @@ ported path through rpagp_torch.runner.run_split at full size:
   library's SASS;
 - the dense Cholesky path (K1's 512 leaf in the blocked factor of
   K + s^2 I) on rp_poly_j20 / sml, phase 8, then every other dense spec
-  briefly.
+  briefly;
+- SKI + BBMM (K2 and K3 in every CG iteration and backward), phase 9:
+  rp_poly_j20_ski on sml (m = 512, t = 11; its CUDA MLL against the CPU
+  one, and against the exact grid solver forced at p = 10,240 with K1's
+  (20, 512, 512) ladder batch), then the flagship spec with
+  solver="bbmm" at n = 1.84M (the cached preconditioner, LOVE at rank
+  512, the gap to grid_mll). Phase 4 also holds the grid path's cached
+  predictor, posterior covariance and factor diagnostics.
+
+Each phase prints its seconds.
 
     python3 chip_smoke.py
 
@@ -804,8 +813,7 @@ def phase4_main_path(results):
     exp = dataclasses.replace(exp, train=dataclasses.replace(exp.train,
                                                              max_iters=10))
     t0 = time.perf_counter()
-    ds = datasets.load_dataset("houseelectric")
-    split = next(datasets.kfold_splits(ds, k=10, seed=0, equal_train=True))
+    split = _split("houseelectric")
     say(4, f"synthetic HouseElectric split 0: train {split.train_x.shape}, "
            f"test {split.test_x.shape}, made in {time.perf_counter() - t0:.1f} s")
     check(split.train_x.shape[0] == N_FLAGSHIP_TRAIN, "unexpected n_train")
@@ -822,8 +830,9 @@ def phase4_main_path(results):
     launches = {**cuda_chol.launches, **cuda_interp.launches}
     stats = dict(grid_solve.stats)
     peak = torch.cuda.max_memory_allocated()
-    # factors in the run: one per training step + one in the posterior
-    n_factor = m["iterations"] + 1
+    # factors in the run: one per training step, one in the posterior and
+    # one in the runner's factor_diagnostics
+    n_factor = m["iterations"] + 2
     say(4, f"run_split: prepare {timings['prepare_s']:.2f} s, train "
            f"{timings['train_s']:.2f} s ({m['iterations']} steps), posterior "
            f"{timings['posterior_s']:.2f} s; rmse {m['rmse']:.4f} nll "
@@ -893,12 +902,82 @@ def phase4_main_path(results):
     if busy == 0:
         say(4, "torch.profiler recorded no device time: the step's device "
                "breakdown is not measured")
-        return
-    k1 = by["chol_linv_coop_kernel"]
-    say(4, f"torch.profiler over 3 more steps: device busy {busy:.2f} ms/step "
-           f"(idle {100 * (1 - busy / med):.0f}% of the {med:.2f} ms step); K1's "
-           f"cooperative kernel (ten leaves and the ladder batch) {k1:.2f} "
-           f"ms/step ({100 * k1 / busy:.1f}% of device time)")
+    else:
+        k1 = by["chol_linv_coop_kernel"]
+        say(4, f"torch.profiler over 3 more steps: device busy {busy:.2f} "
+               f"ms/step (idle {100 * (1 - busy / med):.0f}% of the {med:.2f} "
+               f"ms step); K1's cooperative kernel (ten leaves and the ladder "
+               f"batch) {k1:.2f} ms/step ({100 * k1 / busy:.1f}% of device "
+               f"time)")
+    grid_posteriors(exp.model, params, buffers, x, y, xt)
+
+
+def grid_posteriors(spec, params, buffers, x, y, xt):
+    """The grid path's other posteriors at the params of the timed steps:
+    make_grid_predictor on the test fold against grid_posterior (another
+    grid: the train range extended by half its span each side, so close,
+    not equal), grid_posterior_cov on 512 test points (its diagonal
+    against grid_posterior's variance on the same points, symmetry, a
+    Cholesky with the observation noise), and factor_diagnostics against
+    the ladder levels the last grid_mll chose."""
+    import torch
+
+    from rpagp_torch.ops import cuda_chol, grid_solve
+
+    params = {k: ({kk: vv.detach() for kk, vv in v.items()}
+                  if isinstance(v, dict) else v.detach())
+              for k, v in params.items()}
+    yt = torch.as_tensor(_split("houseelectric").test_y, device=x.device)
+    with torch.no_grad():
+        mu, var = grid_solve.grid_posterior(spec, params, buffers, x, y, xt)
+        _zero([cuda_chol.launches])
+        t0 = time.perf_counter()
+        predict = grid_solve.make_grid_predictor(spec, params, buffers, x, y)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        mu_p, var_p = predict(xt)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        k1 = dict(cuda_chol.launches)
+        mu_p2, _ = predict(xt)
+        em, ev = rel(mu_p, mu), rel(var_p, var)
+        rmse = float(torch.sqrt(torch.mean((mu - yt) ** 2)))
+        rmse_p = float(torch.sqrt(torch.mean((mu_p - yt) ** 2)))
+        say(4, f"make_grid_predictor: factor {t1 - t0:.2f} s (K1 launches "
+               f"{k1}), a {xt.shape[0]}-point batch {t2 - t1:.2f} s; against "
+               f"grid_posterior on the test fold: mean rel {em:.2e}, variance "
+               f"rel {ev:.2e}; rmse {rmse_p:.4f} (grid_posterior's "
+               f"{rmse:.4f}); repeat bit for bit {torch.equal(mu_p2, mu_p)}")
+        check(k1["chol_linv"] > 0 and k1["chol_linv_batched"] > 0,
+              f"the grid predictor's factor ran no K1: {k1}")
+        check(em <= 1e-2 and ev <= 1e-4, f"the grid predictor against "
+              f"grid_posterior: mean rel {em:.2e}, variance rel {ev:.2e}")
+        check(torch.equal(mu_p2, mu_p), "the grid predictor not repeatable")
+
+        xs = xt[:512]
+        mu_c, cov = grid_solve.grid_posterior_cov(spec, params, buffers, x, y,
+                                                  xs, observation_noise=True)
+        mu_s, var_s = grid_solve.grid_posterior(spec, params, buffers, x, y,
+                                                xs)
+        ed, emc = rel(torch.diagonal(cov), var_s), rel(mu_c, mu_s)
+        sym = torch.equal(cov, cov.T)
+        chol_ok = bool(torch.linalg.cholesky_ex(cov).info == 0)
+        say(4, f"grid_posterior_cov on 512 test points: diagonal against "
+               f"grid_posterior's variance rel {ed:.2e}, mean rel {emc:.2e}; "
+               f"exactly symmetric {sym}; Cholesky with the observation "
+               f"noise succeeds {chol_ok}")
+        check(ed <= 1e-4 and emc <= 1e-4, f"grid_posterior_cov against "
+              f"grid_posterior: {ed:.2e}, {emc:.2e}")
+        check(sym and chol_ok, "grid_posterior_cov not symmetric PD")
+
+        grid_solve.grid_mll(spec, params, buffers, x, y)
+        t_lv = float(torch.max(grid_solve.stats["t_levels"]))
+        c_lv = float(grid_solve.stats["c_level"])
+        diag = grid_solve.factor_diagnostics(spec, params, buffers)
+        say(4, f"factor_diagnostics {diag}; the ladder levels of the last "
+               f"grid_mll: T x{t_lv:.6g}, C {c_lv:.3g} * noise")
+        check(diag == {"t_jitter_mult_max": t_lv, "c_jitter_over_noise": c_lv},
+              "factor_diagnostics disagrees with the ladders' levels")
 
 
 def _gram_case(n, m, t, J, gen, dev):
@@ -1525,6 +1604,504 @@ def phase8_dense_main_path(results):
               f"{name}: {k1} K1 leaves for {r['iterations']} steps")
 
 
+# the K2 and K3 kernels' names in csrc/interp.cu, for torch.profiler
+K2_NAMES = ("transpose_partial_kernel", "reduce_partials_kernel")
+K3_NAMES = ("apply_sum_shifted_kernel", "apply_sum_rows_kernel")
+SPEC_SKI_SML = os.path.join(ROOT, "specs", "rp_poly_j20_ski.json")
+_SPLITS = {}  # data made once per run: name -> split 0
+
+
+def _split(name):
+    from rpagp_torch.utils import datasets
+
+    if name not in _SPLITS:
+        ds = datasets.load_dataset(name)
+        _SPLITS[name] = next(datasets.kfold_splits(ds, k=10, seed=0,
+                                                   equal_train=True))
+    return _SPLITS[name]
+
+
+def hold_interp(phase, label, tf, m, t, gen, tf_out=None, far=False):
+    """K2 (W^T V on tf's points) and K3 (sum_j W_j G_j on tf_out's points,
+    tf's when None) at width t against their plain versions: rel <= 1e-5,
+    bit-for-bit repeats; far=True puts 10 points of tf_out far beyond the
+    grid and holds their rows at exact zero (K3) and their values out of
+    U (K2). Both timed by CUDA events beside their bounds. Returns the
+    results of both (ms, plain_ms, bound_ms, max_abs_err)."""
+    import torch
+
+    from rpagp_torch.ops import cuda_interp
+
+    dev = tf.device
+    tf_out = tf if tf_out is None else tf_out
+    J, n = tf.shape
+    n_out = tf_out.shape[1]
+    if far:
+        tf, tf_out = tf.clone(), tf_out.clone()
+        beyond = torch.tensor([-1e6, -1e4, -50.0, -3.0, -2.001, m + 1.001,
+                               m + 1.5, m + 7.0, m + 1e4, 1e6], device=dev)
+        tf[:, 100:110] = beyond
+        tf_out[:, 100:110] = beyond
+    V = torch.randn(n, t, generator=gen).to(dev)
+    G = torch.randn(J, t, m, generator=gen).to(dev)
+    U = cuda_interp.interp_transpose_cuda(tf, V, m)
+    O = cuda_interp.interp_apply_sum_cuda(tf_out, G)
+    Up = cuda_interp.interp_transpose_plain(tf, V, m)
+    Op = cuda_interp.interp_apply_sum_plain(tf_out, G)
+    torch.cuda.synchronize()
+    eU, eO = rel(U, Up), rel(O, Op)
+    check(eU <= 1e-5 and eO <= 1e-5,
+          f"K2/K3 {label} t={t}: rel {eU:.2e} {eO:.2e}")
+    check(torch.equal(cuda_interp.interp_transpose_cuda(tf, V, m), U),
+          f"K2 {label} t={t}: not bit-identical on a repeat")
+    check(torch.equal(cuda_interp.interp_apply_sum_cuda(tf_out, G), O),
+          f"K3 {label} t={t}: not bit-identical on a repeat")
+    line = ""
+    if far:
+        V2 = V.clone()
+        V2[100:110] = 1e6
+        check(torch.equal(cuda_interp.interp_transpose_cuda(tf, V2, m), U),
+              f"K2 {label}: points beyond the grid contribute")
+        check(bool((O[100:110] == 0).all()) and bool((Op[100:110] == 0).all()),
+              f"K3 {label}: points beyond the grid are not zero")
+        line = "; 10 points beyond the grid: K3 rows exactly 0, K2 ignores them"
+    ms_t = cuda_ms(lambda: cuda_interp.interp_transpose_cuda(tf, V, m),
+                   iters=10)
+    ms_a = cuda_ms(lambda: cuda_interp.interp_apply_sum_cuda(tf_out, G),
+                   iters=10)
+    pms_t = cuda_ms(lambda: cuda_interp.interp_transpose_plain(tf, V, m),
+                    iters=1)
+    pms_a = cuda_ms(lambda: cuda_interp.interp_apply_sum_plain(tf_out, G),
+                    iters=1)
+    # tfrac, V in and U out (K2), or tfrac, G in and out (K3); 4 taps per
+    # point and component, one FMA per column each
+    b_t, by_t, _ = bound(4 * (J * n + n * t + J * t * m),
+                         flops=2 * 4 * J * n * t)
+    b_a, by_a, _ = bound(4 * (J * n_out + n_out * t + J * t * m),
+                         flops=2 * 4 * J * n_out * t)
+    say(phase, f"K2 {label} (J={J}, n={n}, m={m}, t={t}, {-(-t // 8)} "
+               f"launches): rel {eU:.2e}, {ms_t:.4f} ms vs plain {pms_t:.3f}"
+               f" ms, bound {b_t:.4f} ms ({by_t}); K3 (n={n_out}): rel "
+               f"{eO:.2e}, {ms_a:.4f} ms vs plain {pms_a:.3f} ms, bound "
+               f"{b_a:.4f} ms ({by_a}); repeats bit for bit{line}")
+    return {"interp_transpose": dict(ms=ms_t, plain_ms=pms_t, bound_ms=b_t,
+                                     max_abs_err=max_abs(U, Up)),
+            "interp_apply_sum": dict(ms=ms_a, plain_ms=pms_a, bound_ms=b_a,
+                                     max_abs_err=max_abs(O, Op))}
+
+
+def _same_where_finite(out, ref):
+    """(same, non-finite count): K1 outputs `out` equal `ref` bit for bit
+    wherever they are finite, and are non-finite at the same places."""
+    import torch
+
+    same, bad = True, 0
+    for a, b in zip(out, ref):
+        fa, fb = torch.isfinite(a), torch.isfinite(b)
+        same = same and torch.equal(fa, fb) and torch.equal(a[fa], b[fb])
+        bad += int((~fa).sum())
+    return same, bad
+
+
+def _timed_steps(step, steps, refresh_at=None, refresh=None):
+    """Run `steps` training steps (step() returns after backward and the
+    optimizer), each timed by CUDA events, forward apart: (step ms list,
+    forward ms list, refresh ms or None). refresh() runs before step
+    `refresh_at`, timed on its own."""
+    import torch
+
+    events, rev = [], None
+    for i in range(steps):
+        if i == refresh_at:
+            r0, r1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            r0.record()
+            refresh()
+            r1.record()
+            rev = (r0, r1)
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        step(e)
+        events.append(e)
+    torch.cuda.synchronize()
+    return ([a.elapsed_time(c) for a, _, c in events],
+            [a.elapsed_time(b) for a, b, _ in events],
+            None if rev is None else rev[0].elapsed_time(rev[1]))
+
+
+def _adam_step(spec, params, buffers, x, y, gen):
+    """(leaves, step(events)) of the trainer's step on the MLL: events
+    (start, after forward, end) recorded around it."""
+    import torch
+
+    from rpagp_torch.mll import mll
+
+    n = x.shape[0]
+    leaves = [params["raw_noise"], params["mean_const"],
+              *params["kernel"].values()]
+    for t in leaves:
+        t.requires_grad_(True)
+    opt = torch.optim.Adam(leaves, lr=0.1)
+
+    def step(ev=None):
+        if ev:
+            ev[0].record()
+        opt.zero_grad(set_to_none=True)
+        loss = -mll(spec, params, buffers[0], x, y, gen) / n
+        if ev:
+            ev[1].record()
+        loss.backward()
+        opt.step()
+        if ev:
+            ev[2].record()
+        return loss
+
+    return leaves, step
+
+
+def phase9_ski_bbmm(results):
+    """SKI + BBMM at full width: (a) rp_poly_j20_ski on synthetic sml split
+    0 (n_train 3723, D = 26, J = 20, m = 512, p = 10,240 > _P_MAX, so SKI +
+    BBMM at any n; cg 100, rank 15, 10 probes): K2 and K3 at m = 512,
+    t = 11 on the split's tfrac; the CUDA iterative MLL against the
+    port's CPU one on the same probe normals; the same model on the exact
+    grid solver (forced, p = 10,240; K1's (20, 512, 512) ladder batch held
+    against the one-block kernel); run_split for 10 steps, then timed
+    steps. (b) the flagship spec with solver="bbmm" (the paper's
+    HouseElectric configuration: cg 20, rank 15, precond_refresh 10, 8
+    probes, love_rank 512) on the full synthetic split (n_train
+    1,844,352) for 20 steps (cut from 100): the cached preconditioner
+    from step 10, the LOVE posterior at rank 512, the gap to grid_mll."""
+    phase9a_ski_bbmm_sml(results)
+    phase9b_ski_bbmm_houseelectric(results)
+
+
+def phase9a_ski_bbmm_sml(results):
+    """Phase 9 (a): rp_poly_j20_ski on synthetic sml split 0."""
+    import torch
+
+    from rpagp_torch import runner
+    from rpagp_torch.models import exact_gp
+    from rpagp_torch.ops import (cuda_chol, cuda_gram, cuda_interp,
+                                 grid_solve, iterative)
+    from rpagp_torch.ops.exact import LOG_2PI
+    from rpagp_torch.utils.config import load_spec
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(9)
+    counters = (cuda_chol.launches, cuda_interp.launches, cuda_gram.launches)
+    exp = load_spec(SPEC_SKI_SML)
+    exp = dataclasses.replace(exp, train=dataclasses.replace(exp.train,
+                                                             max_iters=10))
+    spec = exp.model
+    m_grid = spec.kernel.grid_size
+    split = _dense_split()
+    x = torch.as_tensor(split.train_x, device=dev)
+    y = torch.as_tensor(split.train_y, device=dev)
+    n = x.shape[0]
+    check(n == N_SML_TRAIN, f"unexpected sml split {split.train_x.shape}")
+    check(not grid_solve.use_grid_solver(spec, n), "sml SKI spec takes the "
+          "grid solver")
+    p0, b0 = exact_gp.init_model(spec, x.shape[1],
+                                 generator=torch.Generator().manual_seed(0),
+                                 device="cpu")
+
+    def to(tree, d):
+        return {k: to(v, d) if isinstance(v, dict) else v.to(d, copy=True)
+                for k, v in tree.items()}
+
+    params, kbuf = to(p0, dev), to(b0, dev)
+    buffers = exact_gp.prepare_buffers(spec, params, kbuf, x, y_train=y)
+    check(sorted(buffers) == ["kernel", "ski_state"],
+          f"SKI + BBMM buffers {sorted(buffers)}")
+    tf = buffers["ski_state"].tfrac
+    hold_interp(9, "on sml's tfrac (every CG iteration)", tf, m_grid,
+                spec.num_probes + 1, gen)
+
+    # the CUDA MLL against the port's CPU one: run_split's initial params,
+    # projection and data, the same probe normals (the CPU side, the plain
+    # interpolation's dense (20, 3723, 512) W twice a CG iteration, on
+    # every core)
+    eps_small = torch.randn(spec.precond_rank, spec.num_probes, generator=gen)
+    eps_big = torch.randn(n, spec.num_probes, generator=gen)
+    threads = torch.get_num_threads()
+    out = {}
+    for d in ("cuda", "cpu"):
+        torch.set_num_threads(os.cpu_count() if d == "cpu" else threads)
+        p, b = to(p0, d), to(b0, d)
+        xd, yd = x.to(d), y.to(d)
+        b = exact_gp.prepare_buffers(spec, p, b, xd)
+        lv = [p["raw_noise"], p["mean_const"], *p["kernel"].values()]
+        for t in lv:
+            t.requires_grad_(True)
+        stats = {}
+        t0 = time.perf_counter()
+        iq, ld = iterative.inv_quad_logdet_eps(spec, p, b, xd, yd,
+                                               eps_small.to(d),
+                                               eps_big.to(d), stats=stats)
+        v = -0.5 * (iq + ld + n * LOG_2PI)
+        v.backward()
+        out[d] = (float(v.detach()), [t.grad for t in lv],
+                  (stats["cg"].alphas == 0).cpu(), time.perf_counter() - t0)
+    torch.set_num_threads(threads)
+    (vg, gg, fg, sg), (vc, gc, fc, sc) = out["cuda"], out["cpu"]
+    erel, grel = abs(vg - vc) / abs(vc), _grad_relerr(gg, gc)
+    say(9, f"iterative_mll SKI J={spec.kernel.J} m={m_grid} n={n}: value cuda {vg:.8g} cpu "
+           f"{vc:.8g} rel {erel:.2e}; grad relerr {grel:.2e}; CG froze the "
+           f"same iterations {torch.equal(fg, fc)} (per column cuda "
+           f"{fg.sum(0).tolist()} cpu {fc.sum(0).tolist()}); value+grad "
+           f"{sg:.2f} s cuda, {sc:.2f} s cpu ({os.cpu_count()} threads)")
+    check(erel <= 1e-4, f"SKI iterative_mll value rel {erel:.2e} > 1e-4")
+    check(grel <= 1e-3, f"SKI iterative_mll grad relerr {grel:.2e} > 1e-3")
+
+    # the same model on the exact grid solver at the same params: p =
+    # 10,240, K1's ladder batch at (20, 512, 512) and 20 leaves
+    spec_g = dataclasses.replace(spec, solver="grid")
+    bg = exact_gp.prepare_buffers(spec_g, params, kbuf, x, y_train=y)
+    with torch.no_grad():
+        T = grid_solve._toeplitz_blocks(spec.kernel, params["kernel"],
+                                        bg["ski_state"])
+        eye = torch.eye(m_grid, device=dev)
+        levels = []
+        for mult in grid_solve._LADDER:
+            Tj = (T + (spec.grid_jitter * mult * T[:, 0, 0])[:, None, None]
+                  * eye).contiguous()
+            out = cuda_chol.chol_linv_cuda(Tj, "chol_linv_batched")
+            ref = cuda_chol.chol_linv_cuda(Tj, cuda_chol.ONE_BLOCK)
+            okp = cuda_chol.chol_linv_plain(Tj)[2]
+            torch.cuda.synchronize()
+            same, bad = _same_where_finite(out, ref)
+            levels.append(f"x{mult:g}: ok {int(out[2].sum())}/{T.shape[0]} "
+                          f"(one-block {int(ref[2].sum())}, cuSOLVER "
+                          f"{int(okp.sum())}), {bad} non-finite outputs")
+            check(same, f"K1 {tuple(T.shape)} at jitter x{mult:g}: not bit "
+                        f"for bit the one-block kernel's")
+        ms_b = cuda_ms(lambda: cuda_chol.chol_linv_cuda(Tj, "chol_linv_batched"))
+        ms_o = cuda_ms(lambda: cuda_chol.chol_linv_cuda(Tj, cuda_chol.ONE_BLOCK),
+                       iters=2)
+        ms_c = cuda_ms(lambda: cuda_chol.chol_linv_plain(Tj))
+        bms, bby, _ = bound(4 * 3 * T.numel(),
+                            flops=T.shape[0] * 2 * m_grid**3 / 3)
+        say(9, f"K1 ladder batch {tuple(T.shape)} on the sml SKI model's "
+               f"Toeplitz blocks, every ladder level bit for bit the "
+               f"one-block kernel's (L, Linv, ok) where finite, non-finite "
+               f"at the same places: "
+               f"{'; '.join(levels)}; at x{grid_solve._LADDER[-1]:g}: "
+               f"{ms_b:.4f} ms vs one-block {ms_o:.4f} ms, cuSOLVER "
+               f"{ms_c:.4f} ms, bound {bms:.4f} ms ({bby})")
+        grid_solve.reset_stats()
+        vgrid = float(grid_solve.grid_mll(spec_g, params, bg, x, y))
+        vit = float(iterative.iterative_mll(spec, params, buffers, x, y,
+                                            torch.Generator(device=dev)
+                                            .manual_seed(1)))
+    gap = abs(vit - vgrid) / n
+    say(9, f"the same model on the exact grid solver (p = "
+           f"{spec.kernel.J * m_grid}, forced): "
+           f"grid_mll {vgrid:.6f}, iterative_mll {vit:.6f} (CUDA, seed 1), "
+           f"{vg:.6f} (the normals above); per datum |iterative - grid| / n "
+           f"{gap:.2e} (bar 5e-3); ladder escalations T "
+           f"{grid_solve.stats['t_escalations']} C "
+           f"{grid_solve.stats['c_escalations']}")
+    check(gap <= 5e-3, f"SKI + BBMM vs grid per-datum gap {gap:.2e} > 5e-3")
+    del bg, T, Tj, out, ref
+
+    # run_split, then 5 timed steps at the same size
+    _zero(counters)
+    torch.cuda.reset_peak_memory_stats()
+    timings = {}
+    m = runner.run_split(exp, split, seed=0, device=dev, timings=timings)
+    torch.cuda.synchronize()
+    launches = {k: v for c in counters for k, v in c.items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    say(9, f"run_split rp_poly_j20_ski on sml split 0 (max_iters 10 of 500): "
+           f"prepare {timings['prepare_s']:.3f} s, train "
+           f"{timings['train_s']:.3f} s ({m['iterations']} steps), posterior "
+           f"{timings['posterior_s']:.3f} s (chunked CG); rmse "
+           f"{m['rmse']:.4f} nll {m['nll']:.4f} mll {m['mll']:.5f}; peak "
+           f"memory {peak / 2**30:.2f} GiB; launches {launches}")
+    for k in ("interp_transpose", "interp_apply_sum"):
+        check(launches.get(k, 0) > 0, f"kernel {k} not launched on SKI + BBMM")
+        results[k].setdefault("launches_by_path", {})["ski_bbmm"] = launches[k]
+    for k in ("rmse", "nll", "mll"):
+        check(math.isfinite(m[k]), f"{k} not finite")
+    check(m["rmse"] < 1.0, f"rmse {m['rmse']:.4f} >= 1.0: learned nothing")
+
+    gen_p = torch.Generator(device=dev).manual_seed(1)
+    bufs = [buffers]
+    _, step = _adam_step(spec, params, bufs, x, y, gen_p)
+    step()  # warm-up
+    syncs = _count_syncs(step)
+    _zero(counters)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, fwd_ms, _ = _timed_steps(step, 5)
+    per_step = {k: v / 5 for c in counters for k, v in c.items() if v}
+    step_peak = torch.cuda.max_memory_allocated()
+    med = statistics.median(step_ms)
+    busy, by = _device_ms(step, 2, K2_NAMES + K3_NAMES)
+    k2 = sum(by[k] for k in K2_NAMES)
+    k3 = sum(by[k] for k in K3_NAMES)
+    say(9, f"5 timed steps: median {med:.2f} ms/step (all "
+           f"{', '.join(f'{v:.2f}' for v in step_ms)}; forward median "
+           f"{statistics.median(fwd_ms):.2f} ms); device busy {busy:.2f} "
+           f"ms/step (idle {100 * (1 - busy / med):.0f}%), K2 {k2:.2f} ms "
+           f"({100 * k2 / max(busy, 1e-9):.1f}%), K3 {k3:.2f} ms "
+           f"({100 * k3 / max(busy, 1e-9):.1f}%); launches per step "
+           f"{per_step}; device->host syncs in one step "
+           f"{sum(syncs.values())} {syncs}; peak memory of a step "
+           f"{step_peak / 2**30:.2f} GiB")
+
+
+def phase9b_ski_bbmm_houseelectric(results):
+    """Phase 9 (b): the flagship spec with solver="bbmm" on the full
+    synthetic HouseElectric split."""
+    import torch
+
+    from rpagp_torch import runner
+    from rpagp_torch.models import exact_gp
+    from rpagp_torch.ops import (cuda_chol, cuda_gram, cuda_interp,
+                                 grid_solve, iterative)
+    from rpagp_torch.ops.exact import LOG_2PI
+    from rpagp_torch.utils.config import load_spec
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(10)
+    counters = (cuda_chol.launches, cuda_interp.launches, cuda_gram.launches)
+    exp = load_spec(SPEC)
+    spec = dataclasses.replace(exp.model, solver="bbmm")
+    exp = dataclasses.replace(exp, model=spec, train=dataclasses.replace(
+        exp.train, max_iters=20))
+    split = _split("houseelectric")
+    x = torch.as_tensor(split.train_x, device=dev)
+    y = torch.as_tensor(split.train_y, device=dev)
+    xt = torch.as_tensor(split.test_x, device=dev)
+    n = x.shape[0]
+    check(n == N_FLAGSHIP_TRAIN, "unexpected n_train")
+    _zero(counters)
+    torch.cuda.reset_peak_memory_stats()
+    timings = {}
+    m = runner.run_split(exp, split, seed=0, device=dev, timings=timings)
+    torch.cuda.synchronize()
+    launches = {k: v for c in counters for k, v in c.items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    refreshes = m["refreshes"]
+    say(9, f"run_split flagship spec, solver bbmm (max_iters 20 of 100), "
+           f"HouseElectric split 0 (n_train {n}): prepare "
+           f"{timings['prepare_s']:.2f} s, train {timings['train_s']:.2f} s "
+           f"({m['iterations']} steps, {refreshes} preconditioner refresh), "
+           f"posterior (LOVE rank 512) {timings['posterior_s']:.2f} s; rmse "
+           f"{m['rmse']:.4f} nll {m['nll']:.4f} mll {m['mll']:.5f}; peak "
+           f"memory {peak / 2**30:.2f} GiB; launches {launches}")
+    for k in ("interp_transpose", "interp_apply_sum"):
+        check(launches.get(k, 0) > 0, f"kernel {k} not launched on the "
+              "flagship's SKI + BBMM path")
+        results[k].setdefault("launches_by_path",
+                              {})["ski_bbmm_houseelectric"] = launches[k]
+    for k in ("rmse", "nll", "mll"):
+        check(math.isfinite(m[k]), f"{k} not finite")
+    check(m["rmse"] < 0.9, f"rmse {m['rmse']:.4f} >= 0.9: learned nothing")
+    check(refreshes == 1, f"{refreshes} preconditioner refreshes in 20 "
+                          f"steps, not 1")
+
+    # K2 / K3 at the path's shapes: every CG iteration (t = 9), the cross
+    # MVMs of the posteriors at the spec's love_rank r (K2 on the train
+    # points, K3 on the test points): t = r for run_split's LOVE posterior
+    # (K_star Q), t = r + 1 for make_predictor ([alpha | Q]); points
+    # beyond the grid
+    params, kbuf = exact_gp.init_model(spec, x.shape[1],
+                                       generator=torch.Generator()
+                                       .manual_seed(0), device=dev)
+    buffers = exact_gp.prepare_buffers(spec, params, kbuf, x, y_train=y)
+    tf = buffers["ski_state"].tfrac
+    m_grid = spec.kernel.grid_size
+    st_tr, st_te = iterative._union_states(spec, params, buffers, x, xt)
+    res9 = hold_interp(9, "on the flagship's tfrac (every CG iteration)", tf,
+                       m_grid, spec.num_probes + 1, gen)
+    say(9, f"the flagship's CG MVM at t = 9: K2 + K3 {res9['interp_transpose']['ms'] + res9['interp_apply_sum']['ms']:.3f} ms an iteration")
+    for t in (spec.love_rank, spec.love_rank + 1):
+        hold_interp(9, "posterior cross MVM (K2 on train, K3 on test)",
+                    st_tr.tfrac, m_grid, t, gen, tf_out=st_te.tfrac, far=True)
+    del st_tr, st_te
+    del res9
+
+    # 20 steps as the trainer takes them: the preconditioner built fresh in
+    # steps 0-9, cached from step 10 on
+    gen_p = torch.Generator(device=dev).manual_seed(1)
+    bufs = [buffers]
+    p_init = {k: ({kk: vv.clone() for kk, vv in v.items()}
+                  if isinstance(v, dict) else v.clone())
+              for k, v in params.items()}
+    _, step = _adam_step(spec, params, bufs, x, y, gen_p)
+
+    def refresh():
+        with torch.no_grad():
+            bufs[0] = exact_gp.refresh_preconditioner(spec, params, bufs[0], x)
+
+    _zero(counters)
+    step_ms, fwd_ms, ref_ms = _timed_steps(step, 20, refresh_at=10,
+                                           refresh=refresh)
+    per_step = {k: v / 20 for c in counters for k, v in c.items() if v}
+    syncs = _count_syncs(step)
+    fresh_ms = statistics.median(step_ms[1:10])
+    cached_ms = statistics.median(step_ms[10:])
+    with torch.no_grad():
+        noise = exact_gp.noise_value(params)
+        pre_ms = cuda_ms(lambda: iterative._build_pre(spec, params, bufs[0],
+                                                      x, noise), iters=3)
+    busy, by = _device_ms(step, 2, K2_NAMES + K3_NAMES)
+    k2 = sum(by[k] for k in K2_NAMES)
+    k3 = sum(by[k] for k in K3_NAMES)
+    say(9, f"20 timed steps: steps 1-9 (preconditioner built each step) "
+           f"median {fresh_ms:.2f} ms/step, steps 10-19 (cached) median "
+           f"{cached_ms:.2f} ms/step (all "
+           f"{', '.join(f'{v:.1f}' for v in step_ms)}); forward median "
+           f"{statistics.median(fwd_ms[1:10]):.2f} / "
+           f"{statistics.median(fwd_ms[10:]):.2f} ms; the refresh "
+           f"{ref_ms:.2f} ms, the rank-15 build alone {pre_ms:.2f} ms; device "
+           f"busy {busy:.2f} ms/step (cached), K2 {k2:.2f} ms "
+           f"({100 * k2 / max(busy, 1e-9):.1f}%), K3 {k3:.2f} ms "
+           f"({100 * k3 / max(busy, 1e-9):.1f}%); launches per step "
+           f"{per_step}; device->host syncs in one step "
+           f"{sum(syncs.values())} {syncs}")
+
+    # the gap to the exact grid solver, at the initial params and at those
+    # after the 20 steps: the BBMM estimate at the spec's cg 20 and at 10x
+    # the CG iterations (the same probe normals), the CG residuals
+    spec_g = dataclasses.replace(spec, solver="grid")
+    bg = exact_gp.prepare_buffers(spec_g, params, kbuf, x, y_train=y)
+    gaps = {}
+    for label, p, b in (("initial", p_init, buffers), ("after 20 steps",
+                                                        params, bufs[0])):
+        with torch.no_grad():
+            p = {k: ({kk: vv.detach() for kk, vv in v.items()}
+                     if isinstance(v, dict) else v.detach())
+                 for k, v in p.items()}
+            vgrid = float(grid_solve.grid_mll(spec_g, p, bg, x, y))
+            g2 = torch.Generator(device=dev).manual_seed(2)
+            es = torch.randn(spec.precond_rank, spec.num_probes, generator=g2,
+                             device=dev)
+            eb = torch.randn(n, spec.num_probes, generator=g2, device=dev)
+            line = []
+            for cg in (spec.cg_max_iters, 10 * spec.cg_max_iters):
+                stats = {}
+                iq, ld = iterative.inv_quad_logdet_eps(
+                    dataclasses.replace(spec, cg_max_iters=cg), p, b, x, y,
+                    es, eb, stats=stats)
+                vit = float(-0.5 * (iq + ld + n * LOG_2PI))
+                r = stats["cg"].residual_norm
+                gaps[(label, cg)] = abs(vit - vgrid) / n
+                line.append(f"cg {cg}: iterative_mll {vit / n:.5f}/datum, "
+                            f"gap {gaps[(label, cg)]:.2e}, CG relative "
+                            f"residual y {float(r[0]):.1e} probes max "
+                            f"{float(r[1:].max()):.1e}")
+            say(9, f"against grid_mll at the {label} params (noise "
+                   f"{float(exact_gp.noise_value(p)):.4g}): grid_mll "
+                   f"{vgrid / n:.5f}/datum; " + "; ".join(line))
+            check(math.isfinite(vgrid) and math.isfinite(vit),
+                  "MLL not finite")
+    say(9, f"per datum |iterative - grid| / n at the spec's cg "
+           f"{spec.cg_max_iters}: {gaps[('initial', spec.cg_max_iters)]:.2e} "
+           f"initial, {gaps[('after 20 steps', spec.cg_max_iters)]:.2e} after "
+           f"20 steps (recorded; the sml model's bar is 5e-3)")
+
+
 def main():
     import torch
 
@@ -1532,16 +2109,17 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     t0 = time.perf_counter()
-    phase0_env()
-    phase1_build()
     results = {}
-    phase2_kernels(results)
-    phase3_slice()
-    phase4_main_path(results)
-    phase5_gram_kernels(results)
-    phase6_bbmm_mll()
-    phase7_bbmm_main_path(results)
-    phase8_dense_main_path(results)
+    for phase, fn in enumerate((
+            phase0_env, phase1_build, lambda: phase2_kernels(results),
+            phase3_slice, lambda: phase4_main_path(results),
+            lambda: phase5_gram_kernels(results), phase6_bbmm_mll,
+            lambda: phase7_bbmm_main_path(results),
+            lambda: phase8_dense_main_path(results),
+            lambda: phase9_ski_bbmm(results))):
+        tp = time.perf_counter()
+        fn()
+        say(phase, f"phase {phase} took {time.perf_counter() - tp:.1f} s")
     source = {"chol_linv": "rpagp_torch/csrc/chol_linv_coop.cu",
               "chol_linv_batched": "rpagp_torch/csrc/chol_linv_coop.cu",
               "interp_transpose": "rpagp_torch/csrc/interp.cu",
@@ -1558,7 +2136,7 @@ def main():
             "bound_by", "library_ms")
     # launches: on the grid or BBMM path's run_split; launches_by_path:
     # on each path's run_split that launched the kernel (K1's leaf on the
-    # grid and dense paths)
+    # grid and dense paths, K2 and K3 on the grid and both SKI + BBMM runs)
     kernels = [{"name": k, "route": "cuda", "source": source[k],
                 "replaces": replaces[k], **{f: r[f] for f in keys},
                 "launches_by_path": r["launches_by_path"]}

@@ -4,9 +4,13 @@ The JAX package `rpagp` stays the reference; this package mirrors its
 module names and imports nothing of it. Ported so far, with the kernels
 each path runs written in CUDA (csrc/):
 - the exact grid-solver path of the flagship degree-1 SKI model
-  (prepare_buffers -> train_to_convergence on grid_mll -> grid_posterior):
-  K1 chol_linv (ops/cuda_chol.py), K2 interp_transpose and K3
-  interp_apply_sum (ops/cuda_interp.py);
+  (prepare_buffers -> train_to_convergence on grid_mll -> grid_posterior,
+  make_grid_predictor, grid_posterior_cov): K1 chol_linv
+  (ops/cuda_chol.py), K2 interp_transpose and K3 interp_apply_sum
+  (ops/cuda_interp.py);
+- SKI + BBMM, degree-1 SKI specs past the grid solver's budget: CG + SLQ
+  on ski.ski_mvm (K2, a Toeplitz product by FFT, K3), the cached
+  preconditioner (precond_refresh), the SKI posteriors;
 - the BBMM dense path (ops/iterative.py: batched PCG + SLQ training with
   the probe-estimator backward, the LOVE and chunked-CG posteriors): K4
   gram_mvm and K5 gram_mvm_bwd (ops/cuda_gram.py), the fused projected

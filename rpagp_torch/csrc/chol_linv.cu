@@ -23,7 +23,9 @@
 // Steps 3 and 5 are 32x32 tile products staged through shared memory.
 //
 // Failure contract (pallas_chol._rank1_block): a pivot d <= 0 (or NaN)
-// takes rsd = 1 and a unit column, every output stays finite, ok = 0.
+// takes rsd = 1 and a unit column, ok = 0. Every output is meant to stay
+// finite; at b = 512 a failed matrix can overflow to non-finite outputs
+// (ROADMAP queue 1 item 2), so callers drop an ok = 0 factor.
 // L is exactly lower-triangular; only the lower triangle of A is read.
 //
 // What bounds it on the H100: one SM per matrix, with the ~b^3/3 FMAs

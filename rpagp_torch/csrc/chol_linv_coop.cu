@@ -13,8 +13,9 @@
 //
 // Contract: that of the one-block kernel (chol_linv.cu), per matrix. b is
 // a multiple of 32; only tril(A) is read; L is exactly lower-triangular; a
-// pivot d <= 0 (or NaN) takes rsd = 1 and a unit column, every output
-// stays finite, and that matrix alone gets ok = 0. Each element goes
+// pivot d <= 0 (or NaN) takes rsd = 1 and a unit column, and that matrix
+// alone gets ok = 0 (its outputs can overflow at b = 512: ROADMAP queue 1
+// item 2). Each element goes
 // through the one-block kernel's operations in its order (the tile
 // products through the same routines, chol_tile.cuh), so the two agree
 // bit for bit on every matrix.

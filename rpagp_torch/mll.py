@@ -52,17 +52,18 @@ def posterior(spec: ModelSpec, params, buffers, x_train, y_train, x_test,
 def make_predictor(spec: ModelSpec, params, buffers, x_train, y_train,
                    observation_noise: bool = True):
     """Cached predictor: factor once (the Cholesky and mean cache of the
-    exact branch; the CG mean cache and LOVE cache of the BBMM branch),
-    then predict(x_test) -> (mu, var) per batch. The grid branch's
-    make_grid_predictor is ROADMAP queue 1 item 1."""
+    exact branch; the p x p factor and grid-space mean weights of the grid
+    branch; the CG mean cache and LOVE cache of the BBMM branch), then
+    predict(x_test) -> (mu, var) per batch."""
     solver = _solver(spec, x_train.shape[0])
     if solver == "exact":
         return exact_gp.make_predictor(spec, params, buffers, x_train,
                                        y_train,
                                        observation_noise=observation_noise)
     if solver == "grid":
-        raise NotImplementedError(
-            "grid_solve.make_grid_predictor: ROADMAP queue 1 item 1")
+        return grid_solve.make_grid_predictor(
+            spec, params, buffers, x_train, y_train,
+            observation_noise=observation_noise)
     from .ops.iterative import make_predictor as _iter_mp
 
     return _iter_mp(spec, params, buffers, x_train, y_train,
@@ -71,17 +72,20 @@ def make_predictor(spec: ModelSpec, params, buffers, x_train, y_train,
 
 def posterior_cov(spec: ModelSpec, params, buffers, x_train, y_train, x_test,
                   observation_noise: bool = False):
-    """Posterior (mean, full covariance) at a modest test batch. The exact
-    branch is ported; the grid branch's grid_posterior_cov is ROADMAP
-    queue 1 item 1, the BBMM branch's iterative_posterior_cov queue 1
-    item 3."""
+    """Posterior (mean, full covariance) at a modest test batch: the exact
+    Cholesky, the grid solver's factored form, or the BBMM path's LOVE
+    cache or CG solves."""
     solver = _solver(spec, x_train.shape[0])
     if solver == "grid":
-        raise NotImplementedError(
-            "grid_solve.grid_posterior_cov: ROADMAP queue 1 item 1")
+        return grid_solve.grid_posterior_cov(
+            spec, params, buffers, x_train, y_train, x_test,
+            observation_noise=observation_noise)
     if solver == "iterative":
-        raise NotImplementedError(
-            "iterative.iterative_posterior_cov: ROADMAP queue 1 item 3")
+        from .ops.iterative import iterative_posterior_cov
+
+        return iterative_posterior_cov(spec, params, buffers, x_train,
+                                       y_train, x_test,
+                                       observation_noise=observation_noise)
     return exact_gp.predict_cov(spec, params, buffers, x_train, y_train,
                                 x_test, observation_noise=observation_noise)
 

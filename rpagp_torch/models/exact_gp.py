@@ -6,8 +6,8 @@ The model is a static `ModelSpec` plus two dicts of tensors:
   params:  {"raw_noise", "mean_const", "kernel": {"raw_lengthscale",
             "raw_outputscale"[, "proj"]}}
   buffers: {"kernel": {"proj"}} (projection kernels) plus, after
-           prepare_buffers, the SKI geometry and the per-dataset grid
-           caches.
+           prepare_buffers, the SKI geometry, the per-dataset grid
+           caches or the cached preconditioner.
 """
 
 from __future__ import annotations
@@ -59,27 +59,31 @@ def init_model(spec: ModelSpec, D: int, generator=None, proj=None,
 
 @torch.no_grad()
 def prepare_buffers(spec: ModelSpec, params, buffers, x_train, y_train=None):
-    """Attach the per-dataset grid-solver caches (hyperparameter-free):
-    the SKI geometry and S = U^T U; with y_train also U^T y, U^T 1 and
-    the anchored value cache, after which the MLL step does no work that
-    scales with n. Only evaluate grid_mll on this same split afterwards.
-    A spec without SKI needs no cache: its buffers come back unchanged."""
+    """Attach the per-dataset caches (hyperparameter-free, except the
+    preconditioner's):
+    - a SKI spec on the grid solver: the SKI geometry and S = U^T U; with
+      y_train also U^T y, U^T 1 and the anchored value cache, after which
+      the MLL step does no work that scales with n. Only evaluate grid_mll
+      on this same split afterwards;
+    - a SKI spec on SKI + BBMM: the SKI geometry alone (`ski_state`);
+    - a spec without SKI and with precond_refresh > 1: the pivoted-Cholesky
+      preconditioner at these params (`precond_cache`,
+      refresh_preconditioner). A SKI spec builds none here, as the JAX
+      package: its MLL builds one per step until the trainer's first
+      refresh.
+    Otherwise the buffers come back unchanged."""
     from ..ops import grid_solve
 
     if not spec.kernel.ski:
         if spec.precond_refresh > 1 and spec.precond_rank > 0:
-            raise NotImplementedError(
-                "precond_refresh > 1 (the cached preconditioner): ROADMAP "
-                "slice 10")
+            buffers = refresh_preconditioner(spec, params, buffers, x_train)
         return buffers
-    if not grid_solve.use_grid_solver(spec, x_train.shape[0]):
-        raise NotImplementedError(
-            "SKI + BBMM (the SKI geometry cache, ski.ski_mvm): ROADMAP "
-            "slice 3")
     kspec = spec.kernel
     state = grid_solve.ski.build_ski(kspec, params["kernel"],
                                      buffers["kernel"], x_train,
                                      kspec.grid_size)
+    if not grid_solve.use_grid_solver(spec, x_train.shape[0]):
+        return {**buffers, "ski_state": state}
     S4 = grid_solve.build_interp_gram(state)
     out = {**buffers, "ski_state": state, "ski_uu": S4}
     if y_train is not None:
@@ -87,6 +91,28 @@ def prepare_buffers(spec: ModelSpec, params, buffers, x_train, y_train=None):
         vc = grid_solve.build_value_cache(kspec, state, S4, y_train, uy)
         out.update(ski_uy=uy, ski_u1=u1, ski_vc=vc)
     return out
+
+
+@torch.no_grad()
+def _build_precond_cache(spec: ModelSpec, params, kbuffers, x_train):
+    from ..ops import precond
+
+    kp = {k: v.detach() for k, v in params["kernel"].items()}
+    return precond.build_preconditioner(
+        spec.kernel, kp, kbuffers, x_train, noise_value(params).detach(),
+        spec.precond_rank)
+
+
+def refresh_preconditioner(spec: ModelSpec, params, buffers, x_train):
+    """Rebuild the cached pivoted-Cholesky preconditioner
+    (buffers["precond_cache"]) at the current hyperparameters. With
+    spec.precond_refresh = k > 1 the trainer calls this every k steps
+    instead of the MLL rebuilding it every evaluation: the estimator
+    draws its probes from N(0, M), applies the same M^{-1} and adds the
+    same logdet(M), so it stays unbiased for any SPD M; a stale M only
+    slows CG as the hyperparameters drift."""
+    pre = _build_precond_cache(spec, params, buffers["kernel"], x_train)
+    return {**buffers, "precond_cache": pre}
 
 
 def noise_value(params):

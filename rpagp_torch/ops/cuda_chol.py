@@ -18,10 +18,12 @@ through the same operations in the same order in both, so they agree bit
 for bit on every matrix.
 
 Contract (both): A symmetric, f32. L = chol(A) exactly lower-triangular,
-Linv = L^{-1}, ok = 1.0 / 0.0. On a non-positive pivot every output stays
-FINITE and ok = 0 for that matrix alone (the blocked_cholesky_safe
-contract: a zero cotangent times a finite primal stays zero, which is
-what makes the factor-first ladders sound).
+Linv = L^{-1}, ok = 1.0 / 0.0. On a non-positive pivot ok = 0 for that
+matrix alone, and every output is meant to stay FINITE (the
+blocked_cholesky_safe contract: a zero cotangent times a finite primal
+stays zero). At b = 512 a failed matrix can overflow to non-finite
+outputs (ROADMAP queue 1 item 2), so the factor-first ladders drop a
+factor with ok = 0 on the host before it enters a result.
 
 Gradient: the closed-form GEMM-only VJP of pallas_chol._chol_linv_bwd /
 _fused_bwd, as plain torch.matmul. It returns a SYMMETRIC cotangent, so

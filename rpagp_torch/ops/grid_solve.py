@@ -17,7 +17,12 @@ interpolation passes of prepare and the posterior.
 Each `jax.lax.cond` on a device flag of the JAX package is a Python `if`
 on a device bool here: `_chol_ladder` and `_chol_with_fallback_eps` read
 one flag each, so a training step makes two device->host reads when
-neither ladder escalates. `stats` counts them.
+neither ladder escalates. `stats` counts them, and keeps the levels the
+last factor chose; `factor_diagnostics` reports them at given params.
+
+Posteriors: `grid_posterior` (mean, variance), `grid_posterior_cov`
+(full covariance) and `make_grid_predictor` (factor once, predict per
+batch), each exact within the SKI model.
 
 Product-SKI components are ROADMAP slice 9.
 """
@@ -33,7 +38,7 @@ from .block_chol import (blocked_cholesky, blocked_cholesky_safe,
                          blocked_solve_triangular)
 from .cuda_chol import chol_linv_batched
 from .exact import LOG_2PI
-from .kernels import _component_scales, gram_diag
+from .kernels import _component_scales, gram, gram_diag
 
 # auto-dispatch cap on p = J*m (the JAX package's _P_MAX)
 _P_MAX = 6144
@@ -236,11 +241,12 @@ def _grid_chol_G(spec: ModelSpec, kparams, state: ski.SKIState):
     return G, eps_t / torch.clamp(eps0, min=1e-30)
 
 
-def _factor(spec: ModelSpec, kparams, state: ski.SKIState, S4, noise):
-    """(G, Lc): the Toeplitz factors and the p x p factor of
-    C = noise I + G^T S G (the JAX package's _factor / _factor_diag);
-    the jitters the two ladders chose, its diagnostics, go to
-    stats["t_levels"] / stats["c_level"]."""
+def _factor_diag(spec: ModelSpec, kparams, state: ski.SKIState, S4, noise):
+    """(G, Lc, diag): the Toeplitz factors, the p x p factor of
+    C = noise I + G^T S G, and the jitters the two ladders chose:
+    diag["t_jitter_mult"] (J,) in units of the base grid jitter (1.0 = the
+    base level), diag["c_jitter_over_noise"] () in units of noise (0.0 =
+    exact)."""
     G, t_mult = _grid_chol_G(spec, kparams, state)
     J, M = G.shape[0], G.shape[1]
     p = J * M
@@ -252,9 +258,34 @@ def _factor(spec: ModelSpec, kparams, state: ski.SKIState, S4, noise):
     Sg = 0.5 * (Sg + Sg.T)  # rounding hygiene: the leaf VJP needs symmetry
     C = Sg + noise * torch.eye(p, dtype=Sg.dtype, device=Sg.device)
     Lc, eps_c = _chol_with_fallback_eps(C, noise)
-    stats["t_levels"] = t_mult.detach()
-    stats["c_level"] = eps_c.detach() / torch.clamp(noise.detach(), min=1e-30)
+    diag = {"t_jitter_mult": t_mult.detach(),
+            "c_jitter_over_noise": (eps_c.detach()
+                                    / torch.clamp(noise.detach(), min=1e-30))}
+    return G, Lc, diag
+
+
+def _factor(spec: ModelSpec, kparams, state: ski.SKIState, S4, noise):
+    """(G, Lc) of _factor_diag; its diagnostics go to stats["t_levels"] /
+    stats["c_level"]."""
+    G, Lc, diag = _factor_diag(spec, kparams, state, S4, noise)
+    stats["t_levels"] = diag["t_jitter_mult"]
+    stats["c_level"] = diag["c_jitter_over_noise"]
     return G, Lc
+
+
+@torch.no_grad()
+def factor_diagnostics(spec: ModelSpec, params, buffers):
+    """Whether the solver left its exact level at these params: the largest
+    T-ladder multiplier across blocks and the C-factor's level in units of
+    noise, as floats, read from the ladders the factor of prepare_buffers'
+    grid ran (no read beyond the ladders' own flags and these two). The
+    ladders are silent by design during training; the runner reports
+    this once a split."""
+    noise = exact_gp.noise_value(params)
+    _, _, diag = _factor_diag(spec, params["kernel"], buffers["ski_state"],
+                              buffers["ski_uu"], noise)
+    return {"t_jitter_mult_max": float(torch.max(diag["t_jitter_mult"])),
+            "c_jitter_over_noise": float(diag["c_jitter_over_noise"])}
 
 
 def _G_apply(G, z):
@@ -313,6 +344,10 @@ def _posterior_factor(spec: ModelSpec, params, buffers, x_train, y_train,
     return st_train, q, (G, Lc), noise
 
 
+# test points a (c, p) block of the explained variance takes
+_TEST_CHUNK = 8192
+
+
 def _explained_chunk(factor, noise, Uc):
     """u_i^T G (I - noise C^-1) G^T u_i for dense interp rows Uc (c, p),
     factored: |G^T u|^2 - noise |Lc^-1 G^T u|^2."""
@@ -333,31 +368,95 @@ def _test_interp_rows(state_test: ski.SKIState, chunk_slice):
     return W.transpose(0, 1).reshape(c, J * m)
 
 
+def _test_mean(spec: ModelSpec, params, buffers, bounds, q, x_test):
+    """(st_test, mu): x_test's geometry on the grid of `bounds` and the
+    posterior mean from the cache q (K3)."""
+    kspec = spec.kernel
+    st_test = ski.build_ski(kspec, params["kernel"], buffers["kernel"],
+                            x_test, kspec.grid_size, z_bounds=bounds)
+    mu = ski.dense_interp_apply_sum(st_test, q[:, None, :])[:, 0]
+    return st_test, mu + exact_gp.mean_fn(spec, params, x_test)
+
+
+def _test_var(spec: ModelSpec, params, buffers, st_test, factor, noise,
+              x_test, observation_noise):
+    """The predictive variance k** - explained, in blocks of _TEST_CHUNK
+    test points, floored at 1e-10, plus noise if asked."""
+    n_test = x_test.shape[0]
+    kd = gram_diag(spec.kernel, params["kernel"], buffers["kernel"], x_test)
+    explained = torch.cat([
+        _explained_chunk(factor, noise, _test_interp_rows(
+            st_test, slice(s, s + _TEST_CHUNK)))
+        for s in range(0, n_test, _TEST_CHUNK)])
+    var = torch.clamp(kd - explained, min=1e-10)
+    return var + noise if observation_noise else var
+
+
 @torch.no_grad()
 def grid_posterior(spec: ModelSpec, params, buffers, x_train, y_train,
-                   x_test, observation_noise: bool = True,
-                   chunk: int = 8192):
+                   x_test, observation_noise: bool = True):
     """Posterior predictive (mean, var), exact within the SKI model, on a
     grid rebuilt over the union of train/test projection bounds."""
     _check_degree1(spec.kernel)
+    bounds = ski.union_bounds(spec.kernel, params["kernel"],
+                              buffers["kernel"], x_train, x_test)
+    _, q, factor, noise = _posterior_factor(spec, params, buffers, x_train,
+                                            y_train, bounds)
+    st_test, mu = _test_mean(spec, params, buffers, bounds, q, x_test)
+    return mu, _test_var(spec, params, buffers, st_test, factor, noise,
+                         x_test, observation_noise)
+
+
+@torch.no_grad()
+def grid_posterior_cov(spec: ModelSpec, params, buffers, x_train, y_train,
+                       x_test, observation_noise: bool = False):
+    """Posterior (mean, full covariance), exact within the SKI model. The
+    explained block extends _explained_chunk off the diagonal: with the
+    test rows tp = U* blockdiag(G) (c, p) and s = Lc^-1 tp^T,
+
+        cov = K** - (tp tp^T - noise s^T s),
+
+    with (p, c) buffers only. K** is the exact Gram, so the diagonal is
+    grid_posterior's variance to rounding. For modest test batches: the
+    covariance is (n_test, n_test)."""
+    _check_degree1(spec.kernel)
     kspec, kp, kb = spec.kernel, params["kernel"], buffers["kernel"]
-    z_tr = ski.project(kspec, kp, kb, x_train)
-    z_te = ski.project(kspec, kp, kb, x_test)
-    lo = torch.minimum(torch.amin(z_tr, dim=1), torch.amin(z_te, dim=1))
-    hi = torch.maximum(torch.amax(z_tr, dim=1), torch.amax(z_te, dim=1))
-    st_train, q, factor, noise = _posterior_factor(
-        spec, params, buffers, x_train, y_train, (lo, hi))
-    st_test = ski.build_ski(kspec, kp, kb, x_test, kspec.grid_size,
-                            z_bounds=(lo, hi))
+    bounds = ski.union_bounds(kspec, kp, kb, x_train, x_test)
+    _, q, (G, Lc), noise = _posterior_factor(spec, params, buffers, x_train,
+                                             y_train, bounds)
+    st_test, mu = _test_mean(spec, params, buffers, bounds, q, x_test)
     n_test = x_test.shape[0]
-    mu = ski.dense_interp_apply_sum(st_test, q[:, None, :])[:, 0]
-    mu = mu + exact_gp.mean_fn(spec, params, x_test)
-    kd = gram_diag(kspec, kp, kb, x_test)
-    explained = torch.cat([
-        _explained_chunk(factor, noise,
-                         _test_interp_rows(st_test, slice(s, s + chunk)))
-        for s in range(0, n_test, chunk)])
-    var = torch.clamp(kd - explained, min=1e-10)
+    J, m, _ = G.shape
+    Ub = _test_interp_rows(st_test, slice(0, n_test)).reshape(n_test, J, m)
+    tp = torch.einsum("jab,cja->cjb", G, Ub).reshape(n_test, J * m)
+    s = blocked_solve_triangular(Lc, tp.T)  # (p, c)
+    K_ss = gram(kspec, kp, kb, x_test, x_test)
+    cov = K_ss - (tp @ tp.T - noise * (s.T @ s))
+    cov = 0.5 * (cov + cov.T)
     if observation_noise:
-        var = var + noise
-    return mu, var
+        cov = cov + noise * torch.eye(n_test, dtype=cov.dtype,
+                                      device=cov.device)
+    return mu, cov
+
+
+@torch.no_grad()
+def make_grid_predictor(spec: ModelSpec, params, buffers, x_train, y_train,
+                        observation_noise: bool = True):
+    """Cached predictor on the grid path: factor once on the train grid
+    extended by ski.GRID_MARGIN x span on each side; then each test batch
+    costs K3 (the mean) and one (c, p) product and solve (the variance).
+    Test points beyond the margin get zero taps and so revert to the
+    prior mean, with the prior variance."""
+    _check_degree1(spec.kernel)
+    bounds = ski.margin_bounds(spec.kernel, params["kernel"],
+                               buffers["kernel"], x_train)
+    _, q, factor, noise = _posterior_factor(spec, params, buffers, x_train,
+                                            y_train, bounds)
+
+    @torch.no_grad()
+    def predict(x_test):
+        st_test, mu = _test_mean(spec, params, buffers, bounds, q, x_test)
+        return mu, _test_var(spec, params, buffers, st_test, factor, noise,
+                             x_test, observation_noise)
+
+    return predict

@@ -12,9 +12,12 @@ the CG iterations:
         s_i = A^{-1} z_i,  m_i = M^{-1} z_i,  z_i ~ N(0, M)
 
 Both are gradients of quadratic forms u^T A(θ) v with u, v constant, taken
-through one kernel MVM (K4 forward, K5 backward on the card). The
-preconditioner is excluded from gradients: it changes the estimator's
-variance, not its mean.
+through one kernel MVM: K4 forward and K5 backward on the card, or under
+SKI the W T W^T operator (K2, the Toeplitz FFT product, K3; its backward
+K2 again). The preconditioner is excluded from gradients: it changes the
+estimator's variance, not its mean. With spec.precond_refresh > 1 it
+comes from buffers["precond_cache"] once the trainer has refreshed it
+(models/exact_gp.refresh_preconditioner).
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import torch
 from ..models import exact_gp
 from ..models.exact_gp import ModelSpec
 from . import cg as cg_mod
-from . import kernels, love, precond, slq
+from . import kernels, love, precond, ski, slq
 from .exact import LOG_2PI
 
 # the chunked-CG variance: test points per batched solve and its CG
@@ -33,29 +36,39 @@ _VAR_CHUNK = 256
 _VAR_TOL = 1e-2
 
 
-def _check_spec(spec: ModelSpec):
-    if spec.precond_refresh > 1 and spec.precond_rank > 0:
-        raise NotImplementedError(
-            "precond_refresh > 1 (the cached preconditioner): ROADMAP slice 10")
-
-
-def _kernel_mvm(spec: ModelSpec, params, buffers, x1, x2, V,
+def _kernel_mvm(spec: ModelSpec, params, buffers, x1, x2, V, states=None,
                 allow_pallas: bool = False):
-    """K(x1, x2) @ V through the blocked kernel MVM (K4/K5 on the card
-    where allow_pallas)."""
-    if spec.kernel.ski:
-        raise NotImplementedError(
-            "SKI + BBMM (ski.ski_mvm, the sorted plan): ROADMAP slice 3")
+    """K(x1, x2) @ V: the SKI operator W T W'^T (K2, FFT, K3) when the
+    spec asks for SKI and `states` = (x1's geometry, x2's) is given, else
+    the blocked kernel MVM (K4/K5 on the card where allow_pallas)."""
+    if spec.kernel.ski and states is not None:
+        st1, st2 = states
+        return ski.ski_mvm(spec.kernel, params["kernel"], st1, V,
+                           state_rhs=st2)
     return kernels.mvm(spec.kernel, params["kernel"], buffers["kernel"], x1,
                        x2, V, block_rows=spec.mvm_block_rows,
                        allow_pallas=allow_pallas)
 
 
-def _make_A_mvm(spec: ModelSpec, params, buffers, x, noise):
-    """A = K(x, x) + noise I as an MVM closure."""
+def _ski_state(spec: ModelSpec, params, buffers, x, z_bounds=None,
+               use_cache: bool = False):
+    """SKI geometry of x (hyperparameter-free), or None without SKI.
+    use_cache: take buffers["ski_state"] from prepare_buffers when there
+    is one."""
+    if not spec.kernel.ski:
+        return None
+    if use_cache and buffers.get("ski_state") is not None:
+        return buffers["ski_state"]
+    return ski.build_ski(spec.kernel, params["kernel"], buffers["kernel"], x,
+                         spec.kernel.grid_size, z_bounds=z_bounds)
+
+
+def _make_A_mvm(spec: ModelSpec, params, buffers, x, noise, state=None):
+    """A = K(x, x) + noise I as an MVM closure (SKI when `state`)."""
+    states = None if state is None else (state, state)
 
     def A_mvm(V):
-        return _kernel_mvm(spec, params, buffers, x, x, V,
+        return _kernel_mvm(spec, params, buffers, x, x, V, states=states,
                            allow_pallas=True) + noise * V
 
     return A_mvm
@@ -96,10 +109,17 @@ def _fwd_impl(spec, params, buffers, x, y, eps_small, eps_big):
     n = x.shape[0]
     noise = exact_gp.noise_value(params)
     yc = y - exact_gp.mean_fn(spec, params, x)
-    A_mvm = _make_A_mvm(spec, params, buffers, x, noise)
+    state = _ski_state(spec, params, buffers, x, use_cache=True)
+    A_mvm = _make_A_mvm(spec, params, buffers, x, noise, state=state)
     # probes z ~ N(0, M) from the pre-drawn normals
     if spec.precond_rank > 0:
-        pre = _build_pre(spec, params, buffers, x, noise)
+        cache = buffers.get("precond_cache")
+        if spec.precond_refresh > 1 and cache is not None:
+            # the stale-but-consistent preconditioner the trainer refreshes
+            # every spec.precond_refresh steps (refresh_preconditioner)
+            pre = cache
+        else:
+            pre = _build_pre(spec, params, buffers, x, noise)
         M_inv = lambda R: precond.apply_inverse(pre, R)
         # pre.noise, not the live noise: M = L L^T + pre.noise I is one
         # operator across probes, M_inv and logdet(M)
@@ -120,7 +140,7 @@ def _fwd_impl(spec, params, buffers, x, y, eps_small, eps_big):
     T = cg_mod.lanczos_tridiags_from_cg(res.alphas[:, 1:], res.betas[:, 1:])
     logdet = slq.slq_logdet_from_tridiags(T, torch.sum(Z * MZ, dim=0),
                                           pre_logdet)
-    return inv_quad, logdet, alpha, S, MZ, res
+    return inv_quad, logdet, alpha, S, MZ, res, state
 
 
 class _InvQuadLogdet(torch.autograd.Function):
@@ -133,11 +153,14 @@ class _InvQuadLogdet(torch.autograd.Function):
                 *leaves):
         with torch.no_grad():
             params = _tree(paths, leaves)
-            iq, ld, alpha, S, MZ, res = _fwd_impl(spec, params, buffers, x, y,
-                                                  eps_small, eps_big)
+            iq, ld, alpha, S, MZ, res, state = _fwd_impl(
+                spec, params, buffers, x, y, eps_small, eps_big)
         if stats is not None:
             stats["cg"] = res
         ctx.spec, ctx.paths, ctx.buffers, ctx.x = spec, paths, buffers, x
+        # the SKI geometry (None without SKI): hyperparameter-free, so
+        # the backward reuses it and never differentiates it
+        ctx.states = None if state is None else (state, state)
         ctx.save_for_backward(alpha, S, MZ, y, *leaves)
         return iq, ld
 
@@ -155,7 +178,7 @@ class _InvQuadLogdet(torch.autograd.Function):
             yc = yy - exact_gp.mean_fn(spec, p, x)
             # one batched MVM for both heads
             K_AM = _kernel_mvm(spec, p, ctx.buffers, x, x, V,
-                               allow_pallas=True)
+                               states=ctx.states, allow_pallas=True)
             Ka, KM = K_AM[:, 0], K_AM[:, 1:]
             # inverse-quadratic total derivative: -α^T A α + 2 α^T y_c
             quad_y = -(alpha @ Ka + noise * (alpha @ alpha)) + 2.0 * (alpha @ yc)
@@ -172,7 +195,6 @@ def inv_quad_logdet_eps(spec: ModelSpec, params, buffers, x, y, eps_small,
     given probe normals eps_small (rank, t) and eps_big (n, t): the JAX
     package's `_make_inv_quad_logdet(spec)(params, buffers, x, y,
     eps_small, eps_big)`."""
-    _check_spec(spec)
     paths, leaves = _leaves(params)
     return _InvQuadLogdet.apply(spec, paths, buffers, x, eps_small, eps_big,
                                 stats, y, *leaves)
@@ -199,13 +221,25 @@ def iterative_mll(spec: ModelSpec, params, buffers, x, y, generator=None):
     return -0.5 * (iq + ld + n * LOG_2PI)
 
 
-def _solve_setup(spec, params, buffers, x_train, y_train):
+def _union_states(spec: ModelSpec, params, buffers, x_train, x_test):
+    """(train, test) SKI geometries on one grid over both projections, so
+    that the cross-covariance W_test T W_train^T is consistent; (None,
+    None) without SKI."""
+    if not spec.kernel.ski:
+        return None, None
+    bounds = ski.union_bounds(spec.kernel, params["kernel"],
+                              buffers["kernel"], x_train, x_test)
+    return (_ski_state(spec, params, buffers, x_train, z_bounds=bounds),
+            _ski_state(spec, params, buffers, x_test, z_bounds=bounds))
+
+
+def _solve_setup(spec, params, buffers, x_train, y_train, state=None):
     """(noise, y_c, A_mvm, M_inv, alpha) for the posterior paths: alpha is
-    the mean cache A^{-1} y_c from one tight-tolerance CG solve."""
-    _check_spec(spec)
+    the mean cache A^{-1} y_c from one tight-tolerance CG solve; `state`,
+    the train points' SKI geometry. The preconditioner is built fresh."""
     noise = exact_gp.noise_value(params)
     yc = y_train - exact_gp.mean_fn(spec, params, x_train)
-    A_mvm = _make_A_mvm(spec, params, buffers, x_train, noise)
+    A_mvm = _make_A_mvm(spec, params, buffers, x_train, noise, state=state)
     M_inv = None
     if spec.precond_rank > 0:
         pre = _build_pre(spec, params, buffers, x_train, noise)
@@ -221,21 +255,24 @@ def iterative_posterior(spec: ModelSpec, params, buffers, x_train, y_train,
                         x_test, observation_noise: bool = True, fresh=None):
     """Posterior predictive (mean, var) by CG solves: the LOVE cache when
     spec.love_rank > 0, else one batched CG per chunk of _VAR_CHUNK test
-    points against their K(x_train, chunk) columns. fresh: the LOVE
-    restart table (love.lanczos)."""
+    points against their K(x_train, chunk) columns. Under SKI every MVM
+    is W T W^T on one grid over the train and test projections. fresh:
+    the LOVE restart table (love.lanczos)."""
     kspec, kp, kb = spec.kernel, params["kernel"], buffers["kernel"]
     n_test = x_test.shape[0]
+    st_train, st_test = _union_states(spec, params, buffers, x_train, x_test)
     noise, yc, A_mvm, M_inv, alpha = _solve_setup(spec, params, buffers,
-                                                  x_train, y_train)
+                                                  x_train, y_train, st_train)
+    cross = None if st_train is None else (st_test, st_train)
     mu = _kernel_mvm(spec, params, buffers, x_test, x_train, alpha[:, None],
-                     allow_pallas=True)[:, 0]
+                     states=cross, allow_pallas=True)[:, 0]
     mu = mu + exact_gp.mean_fn(spec, params, x_test)
 
     if spec.love_rank > 0:
         cache = love.build_love_cache(A_mvm, yc, noise, spec.love_rank,
                                       alpha=alpha, fresh=fresh)
         K_star_Q = _kernel_mvm(spec, params, buffers, x_test, x_train, cache.Q,
-                               allow_pallas=True)  # (n_test, r)
+                               states=cross, allow_pallas=True)  # (n_test, r)
         kd = kernels.gram_diag(kspec, kp, kb, x_test)
         return mu, love.love_variance(cache, K_star_Q, kd,
                                       observation_noise=observation_noise)
@@ -247,8 +284,18 @@ def iterative_posterior(spec: ModelSpec, params, buffers, x_train, y_train,
         # the last chunk is padded with zero rows, as the JAX package pads
         xc = torch.cat([xc, xc.new_zeros(_VAR_CHUNK - xc.shape[0],
                                          xc.shape[1])])
-        Kc = _kernel_mvm(spec, params, buffers, x_train, xc, eye,
-                         allow_pallas=True)  # (n, c)
+        if st_train is None:
+            Kc = _kernel_mvm(spec, params, buffers, x_train, xc, eye,
+                             allow_pallas=True)  # (n, c)
+        else:
+            # the chunk on the train grid: bounds at its interior cells
+            # give back the same grid_lo and h
+            h, lo = st_train.h, st_train.grid_lo
+            st_c = _ski_state(spec, params, buffers, xc,
+                              z_bounds=(lo + 2.0 * h,
+                                        lo + (st_train.m - 3) * h))
+            Kc = _kernel_mvm(spec, params, buffers, x_train, xc, eye,
+                             states=(st_train, st_c))
         sol = cg_mod.batched_pcg_while(A_mvm, Kc, M_inv,
                                        max_iters=2 * spec.cg_max_iters,
                                        tol=_VAR_TOL).solution
@@ -265,25 +312,77 @@ def make_predictor(spec: ModelSpec, params, buffers, x_train, y_train,
                    observation_noise: bool = True, fresh=None):
     """Cached prediction: build the mean cache and the LOVE cache once and
     return predict(x_test) -> (mu, var), one cross-kernel MVM per batch.
-    Requires spec.love_rank > 0 (the cache is the variance path)."""
+    Requires spec.love_rank > 0 (the cache is the variance path).
+
+    SKI: the cached grid covers the train projections extended by
+    ski.GRID_MARGIN x span on each side; test points beyond it get zero
+    taps and so revert to the prior."""
     if spec.love_rank <= 0:
         raise ValueError("make_predictor requires spec.love_rank > 0 "
                          "(the LOVE cache is the cached variance path)")
     kspec, kp, kb = spec.kernel, params["kernel"], buffers["kernel"]
+    st_train = bounds = None
+    if kspec.ski:
+        bounds = ski.margin_bounds(kspec, kp, kb, x_train)
+        st_train = _ski_state(spec, params, buffers, x_train, z_bounds=bounds)
     noise, yc, A_mvm, _, alpha = _solve_setup(spec, params, buffers, x_train,
-                                              y_train)
+                                              y_train, st_train)
     cache = love.build_love_cache(A_mvm, yc, noise, spec.love_rank,
                                   alpha=alpha, fresh=fresh)
     AQ = torch.cat([alpha[:, None], cache.Q], dim=1)  # (n, 1 + r)
 
     @torch.no_grad()
     def predict(x_test):
+        cross = None
+        if st_train is not None:
+            cross = (_ski_state(spec, params, buffers, x_test,
+                                z_bounds=bounds), st_train)
         # one cross-kernel MVM per batch: columns [alpha | Q]
         C = _kernel_mvm(spec, params, buffers, x_test, x_train, AQ,
-                        allow_pallas=True)
+                        states=cross, allow_pallas=True)
         mu = C[:, 0] + exact_gp.mean_fn(spec, params, x_test)
         kd = kernels.gram_diag(kspec, kp, kb, x_test)
         return mu, love.love_variance(cache, C[:, 1:], kd,
                                       observation_noise=observation_noise)
 
     return predict
+
+
+@torch.no_grad()
+def iterative_posterior_cov(spec: ModelSpec, params, buffers, x_train,
+                            y_train, x_test, observation_noise: bool = False,
+                            fresh=None):
+    """Posterior (mean, full covariance) at a modest test batch on the BBMM
+    path: from the LOVE cache when spec.love_rank > 0, else n_test CG
+    solves against the K(x_train, x_test) columns (identity MVMs). The
+    prior test block is the exact Gram, under SKI too."""
+    kspec, kp, kb = spec.kernel, params["kernel"], buffers["kernel"]
+    st_train, st_test = _union_states(spec, params, buffers, x_train, x_test)
+    noise, yc, A_mvm, M_inv, alpha = _solve_setup(spec, params, buffers,
+                                                  x_train, y_train, st_train)
+    cross = None if st_train is None else (st_test, st_train)
+    mu = _kernel_mvm(spec, params, buffers, x_test, x_train, alpha[:, None],
+                     states=cross)[:, 0]
+    mu = mu + exact_gp.mean_fn(spec, params, x_test)
+
+    K_ss = kernels.gram(kspec, kp, kb, x_test, x_test)
+    if spec.love_rank > 0:
+        cache = love.build_love_cache(A_mvm, yc, noise, spec.love_rank,
+                                      alpha=alpha, fresh=fresh)
+        K_star_Q = _kernel_mvm(spec, params, buffers, x_test, x_train,
+                               cache.Q, states=cross)
+        cov = love.love_covariance(cache, K_star_Q, K_ss)
+    else:
+        eye = torch.eye(x_test.shape[0], dtype=x_train.dtype,
+                        device=x_train.device)
+        Kc = _kernel_mvm(spec, params, buffers, x_train, x_test, eye,
+                         states=None if cross is None else cross[::-1])
+        sol = cg_mod.batched_pcg_while(A_mvm, Kc, M_inv,
+                                       max_iters=4 * spec.cg_max_iters,
+                                       tol=1e-4).solution
+        cov = K_ss - Kc.T @ sol
+        cov = 0.5 * (cov + cov.T)
+    if observation_noise:
+        cov = cov + noise * torch.eye(cov.shape[0], dtype=cov.dtype,
+                                      device=cov.device)
+    return mu, cov

@@ -1,4 +1,4 @@
-"""SKI grid interpolation, dense plan (subset of rpagp/ops/ski.py).
+"""SKI grid interpolation, dense plan (port of rpagp/ops/ski.py).
 
 Per component j, K_j ~= W_j T_j W_j^T with W_j the cubic-convolution
 interpolation of the projected coordinates onto a regular m-point grid
@@ -8,7 +8,11 @@ dataset; only the Toeplitz columns change with the hyperparameters.
 
 The two interpolation directions run on kernels K2 / K3
 (ops/cuda_interp.py) and are each other's backward, as the JAX
-package's custom_vjp pair.
+package's custom_vjp pair. T_j V is a 2m circulant embedding and batched
+real FFTs (torch.fft), differentiated by autograd. `ski_mvm` chains the
+three: K2, the Toeplitz product, K3.
+
+The sorted interp plan (KernelSpec.interp = "sorted") is ROADMAP queue 1.
 """
 
 from __future__ import annotations
@@ -19,8 +23,8 @@ import torch
 
 from ..utils.transforms import softplus
 from . import cuda_interp
-from .cuda_interp import cubic_kernel as _cubic_kernel  # noqa: F401
-from .kernels import KernelSpec, _get_proj, _k1d
+from .cuda_interp import cubic_kernel as _cubic_kernel
+from .kernels import KernelSpec, _component_scales, _get_proj, _k1d
 
 
 class SKIState(NamedTuple):
@@ -34,6 +38,19 @@ class SKIState(NamedTuple):
     @property
     def m(self) -> int:
         return self.cells.shape[0]
+
+
+def _tap_geometry(tfrac, m: int):
+    """(i0, w4) from fractional coordinates: the base cell (J, n) int32
+    and the 4 cubic tap weights (4, J, n), renormalized to sum to 1;
+    points far outside the grid (all four weights 0) get zero taps."""
+    i0 = torch.clamp(torch.floor(tfrac), 1, m - 3)
+    w4 = torch.stack([_cubic_kernel(tfrac - (i0 + (k - 1)))
+                      for k in range(4)])
+    wsum = torch.sum(w4, dim=0, keepdim=True)
+    safe = torch.where(wsum == 0, torch.ones_like(wsum), wsum)
+    w4 = torch.where(wsum > 1e-8, w4 / safe, torch.zeros_like(w4))
+    return i0.to(torch.int32), w4
 
 
 def project(spec: KernelSpec, kparams, kbuffers, x):
@@ -56,9 +73,32 @@ def build_ski(spec: KernelSpec, kparams, kbuffers, x, grid_size: int,
                          "the SKI interpolation geometry is fixed at "
                          "prepare time, so projection gradients are zero")
     if spec.interp != "dense":
-        raise NotImplementedError("the sorted interp plan is ROADMAP slice 10")
+        raise NotImplementedError("the sorted interp plan is ROADMAP queue 1")
     z = project(spec, kparams, kbuffers, x)
     return _geometry_from_z(z, int(grid_size), z_bounds)
+
+
+def union_bounds(spec: KernelSpec, kparams, kbuffers, x1, x2):
+    """(lo, hi) (J,) over the projections of x1 and x2: one grid for both,
+    as a cross MVM needs."""
+    z1 = project(spec, kparams, kbuffers, x1)
+    z2 = project(spec, kparams, kbuffers, x2)
+    return (torch.minimum(torch.amin(z1, dim=1), torch.amin(z2, dim=1)),
+            torch.maximum(torch.amax(z1, dim=1), torch.amax(z2, dim=1)))
+
+
+# a cached predictor's grid: the train range extended by this x its span
+# on each side (the JAX package's grid_margin default)
+GRID_MARGIN = 0.5
+
+
+def margin_bounds(spec: KernelSpec, kparams, kbuffers, x):
+    """(lo, hi) (J,): x's projection range extended by GRID_MARGIN x its
+    span on each side (a cached predictor's grid)."""
+    z = project(spec, kparams, kbuffers, x)
+    lo, hi = torch.amin(z, dim=1), torch.amax(z, dim=1)
+    span = hi - lo
+    return lo - GRID_MARGIN * span, hi + GRID_MARGIN * span
 
 
 def _geometry_from_z(z, m: int, z_bounds):
@@ -118,3 +158,49 @@ def dense_interp_transpose(state: SKIState, V):
 def dense_interp_apply_sum(state: SKIState, G):
     """sum_j W_j G_j: (J, t, m) -> (n, t)."""
     return _DenseInterpApplySum.apply(state.tfrac, G)
+
+
+def sym_toeplitz_matmul(col, U):
+    """(J, m) Toeplitz first columns x (J, t, m) -> (J, t, m) through a 2m
+    circulant embedding and batched real FFTs over the last axis.
+
+    Only the real part of the embedding's spectrum is kept: it is real in
+    exact arithmetic, so the grid operator stays exactly symmetric. Its
+    eigenvalues are not clamped: the minimal embedding of an RBF Toeplitz
+    has legitimate negative eigenvalues, and clamping them biased the
+    operator (the JAX package's docstring, rpagp/ops/ski.py)."""
+    J, m = col.shape
+    circ = torch.cat([col, col.new_zeros(J, 1), col.flip(-1)[:, :m - 1]],
+                     dim=1)  # (J, 2m)
+    C = torch.fft.rfft(circ, dim=-1).real  # (J, m + 1)
+    F = torch.fft.rfft(torch.cat([U, torch.zeros_like(U)], dim=-1), dim=-1)
+    out = torch.fft.irfft(C[:, None, :] * F, n=2 * m, dim=-1)
+    return out[..., :m]
+
+
+def ski_mvm(spec: KernelSpec, kparams, state: SKIState, V,
+            state_rhs: SKIState | None = None):
+    """K_ski V = sum_j scale_j W_j T_j W'_j^T V, (n, t): K2 on the RHS
+    points, the Toeplitz product, the component scales folded into grid
+    space, K3 on `state`'s points. state_rhs: the RHS points' geometry
+    for a cross MVM (K(test, train) v: state = test, state_rhs = train);
+    both must lie on one grid (build_ski with common z_bounds)."""
+    if state_rhs is None:
+        state_rhs = state
+    col = toeplitz_columns(spec, kparams, state)  # (J, m)
+    scales = _component_scales(spec, kparams)  # (J,)
+    U = dense_interp_transpose(state_rhs, V)  # (J, t, m)
+    TU = sym_toeplitz_matmul(col, U)
+    return dense_interp_apply_sum(state, scales[:, None, None] * TU)
+
+
+def ski_gram_diag(spec: KernelSpec, kparams, state: SKIState):
+    """diag(K_ski), (n,): per point and component w^T T_local w. The grid
+    is regular, so T[a, b] = col[|a - b|] for the 4 taps wherever the
+    point lies: one (4, 4) block per component."""
+    col = toeplitz_columns(spec, kparams, state)  # (J, m)
+    taps = torch.arange(4, device=col.device)
+    Tlocal = col[:, torch.abs(taps[:, None] - taps[None, :])]  # (J, 4, 4)
+    _, w4 = _tap_geometry(state.tfrac, state.m)
+    quad = torch.einsum("jab,ajn,bjn->jn", Tlocal, w4, w4)
+    return _component_scales(spec, kparams) @ quad

@@ -79,9 +79,14 @@ def run_split(exp: ExperimentSpec, split, seed: int = 0, device="cuda",
     # patience with an EMA
     grid = grid_solve.use_grid_solver(spec, n)
     iterative = (n > spec.max_cholesky_size or spec.kernel.ski) and not grid
-    gen_probes = None
+    gen_probes = refresh = None
     if iterative:
         gen_probes = torch.Generator(device=device).manual_seed(seed + 1)
+        if spec.precond_refresh > 1 and spec.precond_rank > 0:
+            # rebuild the cached preconditioner every precond_refresh steps
+            refresh = (spec.precond_refresh, lambda p, a: (
+                exact_gp.refresh_preconditioner(spec, p, a[0], a[1]),)
+                + a[1:])
     t0 = time.perf_counter()
     res = train_to_convergence(
         lambda p, b, xx, yy, *g: -mll_fn(spec, p, b, xx, yy, *g) / n,
@@ -90,6 +95,7 @@ def run_split(exp: ExperimentSpec, split, seed: int = 0, device="cuda",
         loss_args=(buffers, x, y),
         sync_every=8,
         generator=gen_probes,
+        args_refresh=refresh,
     )
     _sync(device)
     train_time = time.perf_counter() - t0
@@ -103,10 +109,10 @@ def run_split(exp: ExperimentSpec, split, seed: int = 0, device="cuda",
         timings.update(prepare_s=t_prepare, train_s=train_time,
                        posterior_s=t_post)
     # the ladders are silent by design: say once per split whether the
-    # posterior's factor (at the returned params) left the exact level
+    # factor at the returned params left the exact level
     if grid:
-        t_max = float(torch.max(grid_solve.stats["t_levels"]))
-        c_over = float(grid_solve.stats["c_level"])
+        diag = grid_solve.factor_diagnostics(spec, res.params, buffers)
+        t_max, c_over = diag["t_jitter_mult_max"], diag["c_jitter_over_noise"]
         if t_max > 1.0 or c_over > 0.0:
             print(f"[diag] grid-factor jitter fallback engaged at best "
                   f"params: T-ladder x{t_max:.3g}, C-chol {c_over:.3g} * "
@@ -117,6 +123,7 @@ def run_split(exp: ExperimentSpec, split, seed: int = 0, device="cuda",
         "mll": -res.best_loss,
         "train_time_s": train_time,
         "iterations": res.iterations,
+        "refreshes": res.refreshes,
         "n_train": int(n),
         "n_test": int(xt.shape[0]),
     }
@@ -158,7 +165,7 @@ def main(argv=None):
                   f"t={m['train_time_s']:.1f}s")
 
     with open(args.output, "w", newline="") as f:
-        w = csv.DictWriter(f, fieldnames=CSV_COLUMNS)
+        w = csv.DictWriter(f, fieldnames=CSV_COLUMNS, extrasaction="ignore")
         w.writeheader()
         for r in rows:
             w.writerow(r)

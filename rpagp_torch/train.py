@@ -1,6 +1,6 @@
 """Hyperparameter training: Adam on the negative marginal log-likelihood
-(port of rpagp/train.py: TrainResult, ConvergenceTracker and
-train_to_convergence).
+(port of rpagp/train.py: TrainResult, ConvergenceTracker,
+train_to_convergence and train_fixed).
 
 The loss stays on the device: losses are read in chunks of `sync_every`
 steps with one torch.stack(...).tolist() per chunk, never a float() per
@@ -32,6 +32,9 @@ class TrainResult:
     # objective at the RETURNED (best) params; losses[-1] is the last
     # iterate's loss
     best_loss: float = float("nan")
+    # calls of args_refresh's function (the BBMM path's cached-
+    # preconditioner rebuilds)
+    refreshes: int = 0
 
 
 @dataclasses.dataclass
@@ -84,6 +87,7 @@ def train_to_convergence(
     loss_args=(),
     sync_every: int = 1,
     generator=None,
+    args_refresh=None,
 ) -> TrainResult:
     """Adam to convergence with patience stopping on the best loss seen:
     stop when the loss has not improved by `rel_tol` for `patience`
@@ -98,7 +102,12 @@ def train_to_convergence(
     losses from the device every k steps; the parameter trajectory is the
     same for any k, only stop detection lags (up to k-1 extra steps run
     and are discarded). Each loss is paired with the params it was
-    evaluated at."""
+    evaluated at.
+
+    args_refresh: optional (every, fn): before step i, for i > 0 a multiple
+    of `every`, loss_args = fn(params, loss_args), outside autograd (the
+    BBMM path rebuilds its cached preconditioner so, spec.precond_refresh;
+    the call reads nothing back to the host)."""
     params = _tree_map(lambda t: t.detach().clone().requires_grad_(True),
                        params)
     opt, sched = make_optimizer(train_config, _leaves(params))
@@ -112,7 +121,12 @@ def train_to_convergence(
     t0 = time.perf_counter()
     converged = diverged = False
     pending = []  # (device loss, params it was evaluated at)
+    refreshes = 0
     for i in range(max_iters):
+        if args_refresh is not None and i > 0 and i % args_refresh[0] == 0:
+            with torch.no_grad():
+                loss_args = args_refresh[1](params, loss_args)
+            refreshes += 1
         pprev = _tree_map(lambda t: t.detach().clone(), params)
         opt.zero_grad(set_to_none=True)
         loss = loss_fn(params, *loss_args, *extra)
@@ -139,4 +153,22 @@ def train_to_convergence(
         params=best, losses=losses, iterations=len(losses),
         converged=converged, wall_time_s=time.perf_counter() - t0,
         best_loss=(tracker.best if tracker.best != float("inf")
-                   else float("nan")))
+                   else float("nan")), refreshes=refreshes)
+
+
+def train_fixed(loss_fn: Callable, params, lr: float = 0.1,
+                num_iters: int = 100):
+    """`num_iters` Adam steps at `lr` with no host read: returns (params,
+    losses), the params after the last step and the (num_iters,) losses,
+    each at the params its step started from, left on the device."""
+    params = _tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                       params)
+    opt = torch.optim.Adam(_leaves(params), lr=lr)
+    losses = []
+    for _ in range(num_iters):
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(params)
+        loss.backward()
+        opt.step()
+        losses.append(loss.detach())
+    return _tree_map(lambda t: t.detach(), params), torch.stack(losses)

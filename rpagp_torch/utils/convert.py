@@ -23,11 +23,12 @@ from ..ops.ski import SKIState
 _TUPLES = {cls._fields: cls for cls in (CGResult, LoveCache, Preconditioner)}
 
 
-def to_torch(tree, device="cpu"):
-    """numpy / array-like tree -> the same tree of tensors on `device`
-    (floating arrays as float32). A JAX SKIState becomes the port's (its
-    sorted-plan fields must be None: only the dense plan ports), and a
-    JAX CGResult, LoveCache or Preconditioner the port's of that name."""
+def to_torch(tree, device="cuda"):
+    """numpy / array-like tree -> the same tree of tensors on `device` (the
+    card unless the caller asks for the CPU; floating arrays as float32).
+    A JAX SKIState becomes the port's (its sorted-plan fields must be
+    None: only the dense plan ports), and a JAX CGResult, LoveCache or
+    Preconditioner the port's of that name."""
     if isinstance(tree, dict):
         return {k: to_torch(v, device) for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "tfrac"):

@@ -171,10 +171,12 @@ def test_gram_and_projected_coords_match(spec_kw):
     x1 = rng.standard_normal((37, 5)).astype(np.float32)
     x2 = rng.standard_normal((23, 5)).astype(np.float32)
     zj = jkernels._projected_coords(jspec, kp, kb, jnp.asarray(x1))
-    z = kernels._projected_coords(spec, to_torch(kp), to_torch(kb), _t(x1))
+    z = kernels._projected_coords(spec, to_torch(kp, device="cpu"),
+                                  to_torch(kb, device="cpu"), _t(x1))
     assert _rel(z.numpy(), zj) <= 1e-5
     Kj = jkernels.gram(jspec, kp, kb, jnp.asarray(x1), jnp.asarray(x2))
-    K = kernels.gram(spec, to_torch(kp), to_torch(kb), _t(x1), _t(x2))
+    K = kernels.gram(spec, to_torch(kp, device="cpu"),
+                     to_torch(kb, device="cpu"), _t(x1), _t(x2))
     assert _rel(K.numpy(), Kj) <= 1e-5
     assert kernels._component_groups(spec) == jkernels._component_groups(jspec)
 
@@ -197,9 +199,10 @@ def test_mvm_value_and_gradients_match(block_rows):
 
     (_, out_j), (gp_j, gV_j) = jax.value_and_grad(
         loss_j, argnums=(0, 1), has_aux=True)(kp, jnp.asarray(V))
-    p = {k: v.requires_grad_(True) for k, v in to_torch(kp).items()}
+    p = {k: v.requires_grad_(True)
+         for k, v in to_torch(kp, device="cpu").items()}
     Vt = _t(V, True)
-    out = kernels.mvm(spec, p, to_torch(kb), _t(x1), _t(x2), Vt,
+    out = kernels.mvm(spec, p, to_torch(kb, device="cpu"), _t(x1), _t(x2), Vt,
                       block_rows=block_rows)
     torch.sum(torch.sin(out)).backward()
     assert _rel(out.detach().numpy(), out_j) <= 1e-5
@@ -212,7 +215,7 @@ def test_mvm_kernel_branch_on_cpu_is_the_blocked_path():
     """allow_pallas on a CPU tensor takes the blocked plain path (the
     kernels run only on CUDA tensors) and agrees with K4's plain version."""
     _, spec, kp, kb = _kernel_case(dict(J=6, d=1, base="rbf"))
-    p, b = to_torch(kp), to_torch(kb)
+    p, b = to_torch(kp, device="cpu"), to_torch(kb, device="cpu")
     x = _t(np.random.default_rng(3).standard_normal((50, 5)))
     V = _t(np.random.default_rng(4).standard_normal((50, 2)))
     got = kernels.mvm(spec, p, b, x, x, V, allow_pallas=True)
@@ -261,6 +264,16 @@ ds = datasets.load_dataset("elevators", max_points=150)
 split = next(datasets.kfold_splits(ds, k=10, seed=0, equal_train=True))
 m = runner.run_split(exp, split, seed=0, device="cpu")
 assert m["rmse"] == m["rmse"] and m["nll"] == m["nll"], m
+# SKI + BBMM: grid rank p = J m > n / 2, so CG + SLQ on W T W^T
+from rpagp_torch.ops.kernels import KernelSpec
+ski_model = dataclasses.replace(
+    model, kernel=KernelSpec.polynomial(J=3, ski=True, grid_size=32),
+    precond_refresh=2)
+ski_exp = dataclasses.replace(exp, model=ski_model,
+                              train=dataclasses.replace(exp.train,
+                                                        max_iters=3))
+m = runner.run_split(ski_exp, split, seed=0, device="cpu")
+assert m["rmse"] == m["rmse"] and m["nll"] == m["nll"], m
 root = os.path.abspath("rpagp") + os.sep
 bad = sorted(k for k, mod in list(sys.modules.items())
              if k == "jax" or k.startswith("jax.") or k == "rpagp"
@@ -271,8 +284,8 @@ print("BAD", bad)
 
 
 def test_port_imports_nothing_of_jax():
-    """A fresh process imports rpagp_torch and runs a small CPU BBMM split;
-    afterwards no jax module, no rpagp module and no module loaded from a
+    """A fresh process imports rpagp_torch and runs a small CPU BBMM split
+    and a small SKI + BBMM split; afterwards no jax module, no rpagp module and no module loaded from a
     file under rpagp/ is in sys.modules."""
     proc = subprocess.run([sys.executable, "-c", _NO_JAX_SCRIPT], cwd=ROOT,
                           capture_output=True, text=True, timeout=300,

@@ -124,13 +124,14 @@ def test_iterative_mll_value_and_gradients_match(base):
 
     vj, (gpj, gyj) = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1)))(
         params, jnp.asarray(y))
-    p = to_torch(params)
+    p = to_torch(params, device="cpu")
     leaves = [p["raw_noise"], p["mean_const"], *p["kernel"].values()]
     for t in leaves:
         t.requires_grad_(True)
     yt = torch.tensor(y, requires_grad=True)
     stats = {}
-    iq, ld = iterative.inv_quad_logdet_eps(spec, p, to_torch(buffers),
+    iq, ld = iterative.inv_quad_logdet_eps(spec, p,
+                                           to_torch(buffers, device="cpu"),
                                            torch.tensor(x), yt,
                                            torch.tensor(es), torch.tensor(eb),
                                            stats=stats)
@@ -153,7 +154,7 @@ def test_mll_dispatch_takes_the_bbmm_branch():
     """mll() above max_cholesky_size without SKI is iterative_mll with
     probes from the generator: the same draws give the same value."""
     (_, spec, params, buffers, x, y, *_rest) = _problem()
-    p, b = to_torch(params), to_torch(buffers)
+    p, b = to_torch(params, device="cpu"), to_torch(buffers, device="cpu")
     xt, yt = torch.tensor(x), torch.tensor(y)
     v1 = tmll.mll(spec, p, b, xt, yt, torch.Generator().manual_seed(5))
     v2 = iterative.iterative_mll(spec, p, b, xt, yt,
@@ -163,9 +164,11 @@ def test_mll_dispatch_takes_the_bbmm_branch():
     small = dataclasses.replace(spec, max_cholesky_size=10**6)
     assert float(tmll.mll(small, p, b, xt, yt)) == float(
         exact_gp.exact_mll(small, p, b, xt, yt))
-    with pytest.raises(NotImplementedError, match="precond_refresh"):
-        exact_gp.prepare_buffers(dataclasses.replace(spec, precond_refresh=5),
-                                 p, b, xt)
+    # precond_refresh > 1 caches the preconditioner at these params
+    cached = exact_gp.prepare_buffers(
+        dataclasses.replace(spec, precond_refresh=5), p, b, xt)
+    assert sorted(cached) == ["kernel", "precond_cache"]
+    assert cached["precond_cache"].L.shape == (x.shape[0], spec.precond_rank)
     assert exact_gp.prepare_buffers(spec, p, b, xt, y_train=yt) is b
 
 
@@ -181,20 +184,23 @@ def test_iterative_posterior_matches(love_rank):
         fresh = torch.tensor(np.asarray(jax.random.normal(
             jax.random.key(0), (love_rank, N), jnp.float32)))
     mu, var = iterative.iterative_posterior(
-        spec, to_torch(params), to_torch(buffers), torch.tensor(x),
+        spec, to_torch(params, device="cpu"),
+        to_torch(buffers, device="cpu"), torch.tensor(x),
         torch.tensor(y), torch.tensor(xs), fresh=fresh)
     assert _rel(mu.numpy(), muj) <= 1e-4
     assert _rel(var.numpy(), varj) <= 1e-4
     if love_rank:  # the cached predictor: the same caches, one MVM a batch
         pj = jiter.make_predictor(jspec, params, buffers, jnp.asarray(x),
                                   jnp.asarray(y))
-        pt = iterative.make_predictor(spec, to_torch(params),
-                                      to_torch(buffers), torch.tensor(x),
+        pt = iterative.make_predictor(spec, to_torch(params, device="cpu"),
+                                      to_torch(buffers, device="cpu"),
+                                      torch.tensor(x),
                                       torch.tensor(y), fresh=fresh)
         (m2j, v2j), (m2, v2) = pj(jnp.asarray(xs)), pt(torch.tensor(xs))
         assert _rel(m2.numpy(), m2j) <= 1e-4
         assert _rel(v2.numpy(), v2j) <= 1e-4
-        m3, v3 = tmll.make_predictor(spec, to_torch(params), to_torch(buffers),
+        m3, v3 = tmll.make_predictor(spec, to_torch(params, device="cpu"),
+                                     to_torch(buffers, device="cpu"),
                                      torch.tensor(x), torch.tensor(y))(
             torch.tensor(xs))
         assert _rel(m3.numpy(), m2.numpy()) <= 1e-5

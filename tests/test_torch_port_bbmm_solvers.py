@@ -115,7 +115,8 @@ def test_batched_pcg_while_matches():
 def test_pivoted_cholesky_and_preconditioner_match():
     jspec, spec, kp, kb, x = _kernel_problem()
     Lj = jprecond.pivoted_cholesky(jspec, kp, kb, jnp.asarray(x), 12)
-    L = precond.pivoted_cholesky(spec, to_torch(kp), to_torch(kb), _t(x), 12)
+    L = precond.pivoted_cholesky(spec, to_torch(kp, device="cpu"),
+                                 to_torch(kb, device="cpu"), _t(x), 12)
     # the same pivots: each column's pivot is the row where it peaks
     np.testing.assert_array_equal(np.argmax(np.abs(L.numpy()), axis=0),
                                   np.argmax(np.abs(np.asarray(Lj)), axis=0))
@@ -123,7 +124,8 @@ def test_pivoted_cholesky_and_preconditioner_match():
     noise = np.float32(0.05)
     pj = jprecond.build_preconditioner(jspec, kp, kb, jnp.asarray(x),
                                        jnp.asarray(noise), 12)
-    pre = precond.build_preconditioner(spec, to_torch(kp), to_torch(kb),
+    pre = precond.build_preconditioner(spec, to_torch(kp, device="cpu"),
+                                       to_torch(kb, device="cpu"),
                                        _t(x), torch.tensor(noise), 12)
     assert _rel(pre.chol_small.numpy(), pj.chol_small) <= 1e-5
     assert _rel(float(pre.logdet), float(pj.logdet)) <= 1e-5
@@ -131,7 +133,7 @@ def test_pivoted_cholesky_and_preconditioner_match():
     assert _rel(precond.apply_inverse(pre, _t(R)).numpy(),
                 jprecond.apply_inverse(pj, jnp.asarray(R))) <= 1e-5
     # and through the JAX NamedTuple carried into the port's
-    pc = to_torch(jax.device_get(pj))
+    pc = to_torch(jax.device_get(pj), device="cpu")
     assert isinstance(pc, precond.Preconditioner)
     assert _rel(precond.apply_inverse(pc, _t(R)).numpy(),
                 jprecond.apply_inverse(pj, jnp.asarray(R))) <= 1e-5

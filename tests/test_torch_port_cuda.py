@@ -574,3 +574,177 @@ def test_dense_mll_matches_float64_cpu(cuda_device, family):
     num = sum(float(((a.double().cpu() - b) ** 2).sum()) for a, b in zip(gg, gc))
     den = sum(float((b ** 2).sum()) for b in gc)
     assert math.sqrt(num / den) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("J,m,t", [(20, 512, 11), (20, 256, 9), (20, 256, 257)],
+                         ids=["sml-train", "houseelectric-train",
+                              "posterior-cross"])
+def test_interp_at_ski_bbmm_shapes(cuda_device, J, m, t):
+    """K2 and K3 at the SKI + BBMM path's shapes (every CG iteration at
+    t = num_probes + 1; a posterior cross MVM at t = love_rank + 1) against
+    their plain versions in float64: rel <= 1e-5, K2's launches one per 8
+    columns, and a repeat bit for bit the same."""
+    tf, V, G = _interp_case(J, 20000, m, t, "uniform", seed=t,
+                            dev=cuda_device)
+    before = cuda_interp.launches["interp_transpose"]
+    U = cuda_interp.interp_transpose_cuda(tf, V, m)
+    assert cuda_interp.launches["interp_transpose"] - before == -(-t // 8)
+    O = cuda_interp.interp_apply_sum_cuda(tf, G)
+    Up = cuda_interp.interp_transpose_plain(tf.double(), V.double(), m)
+    Op = cuda_interp.interp_apply_sum_plain(tf.double(), G.double())
+    torch.cuda.synchronize()
+    assert _rel(U, Up) <= 1e-5
+    assert _rel(O, Op) <= 1e-5
+    assert torch.equal(cuda_interp.interp_transpose_cuda(tf, V, m), U)
+    assert torch.equal(cuda_interp.interp_apply_sum_cuda(tf, G), O)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [256, 512])
+def test_interp_points_beyond_the_grid(cuda_device, m):
+    """Points past every tap's support (tfrac < -2 or > m + 1: a predictor's
+    test points beyond its margin, a variance chunk's padding rows) give
+    exactly zero: K3 returns zero rows, K2 ignores their values, as the
+    plain versions do."""
+    J, n, t = 20, 30000, 11
+    tf, V, G = _interp_case(J, n, m, t, "uniform", seed=m, dev=cuda_device)
+    far = torch.tensor([-1e6, -1e4, -50.0, -3.0, -2.001, m + 1.001, m + 1.5,
+                        m + 7.0, m + 1e4, 1e6], device=cuda_device)
+    tf[:, 100:100 + far.numel()] = far
+    O = cuda_interp.interp_apply_sum_cuda(tf, G)
+    Op = cuda_interp.interp_apply_sum_plain(tf.double(), G.double())
+    assert bool((O[100:110] == 0).all()) and bool((Op[100:110] == 0).all())
+    assert _rel(O, Op) <= 1e-5
+    U = cuda_interp.interp_transpose_cuda(tf, V, m)
+    V2 = V.clone()
+    V2[100:110] = 1e6
+    assert torch.equal(cuda_interp.interp_transpose_cuda(tf, V2, m), U)
+    assert _rel(U, cuda_interp.interp_transpose_plain(tf.double(), V.double(),
+                                                      m)) <= 1e-5
+
+
+def _ski_case(J, m, n, seed):
+    from rpagp_torch.ops.kernels import KernelSpec
+
+    rng = np.random.default_rng(seed)
+    kspec = KernelSpec.generalized([1] * J, ["rbf", "matern32"] * (J // 2),
+                                   ski=True, grid_size=m)
+    D = 8
+    kp = {"raw_lengthscale": torch.from_numpy(
+              (0.3 * rng.standard_normal(J)).astype(np.float32)),
+          "raw_outputscale": torch.tensor(0.2)}
+    kb = {"proj": torch.from_numpy(
+        rng.standard_normal((D, J)).astype(np.float32))}
+    x = torch.from_numpy(rng.standard_normal((n, D)).astype(np.float32))
+    return kspec, kp, kb, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cross", [False, True], ids=["self", "cross"])
+def test_ski_mvm_matches_cpu(cuda_device, cross):
+    """ski_mvm (K2, the Toeplitz FFT product, K3) at J = 20, m = 512,
+    t = 11 on the card against the same computation in float64 on the
+    CPU: value rel <= 1e-5 in norm, gradient relerr <= 1e-4 to the kernel
+    params and to V (the backward runs K3's adjoint, K2)."""
+    from rpagp_torch.ops import ski
+
+    kspec, kp, kb, x = _ski_case(20, 512, 20000, seed=5)
+    xo = x[:3000] * 1.3 if cross else x
+    rng = np.random.default_rng(6)
+    V = torch.from_numpy(rng.standard_normal((x.shape[0], 11))
+                         .astype(np.float32))
+    W = torch.from_numpy(rng.standard_normal((xo.shape[0], 11))
+                         .astype(np.float32))
+    z = (torch.cat([x, xo]) @ kb["proj"]).T
+    bounds = (z.amin(1), z.amax(1))
+    out = {}
+    for d, dtype in ((cuda_device, torch.float32), ("cpu", torch.float64)):
+        k = {key: v.to(d, dtype).requires_grad_(True) for key, v in kp.items()}
+        b = {"proj": kb["proj"].to(d, dtype)}
+        bd = tuple(v.to(d, dtype) for v in bounds)
+        st_rhs = ski.build_ski(kspec, k, b, x.to(d, dtype), 512, z_bounds=bd)
+        st = ski.build_ski(kspec, k, b, xo.to(d, dtype), 512, z_bounds=bd)
+        if d == "cpu":  # the card's geometry, so both see the same taps
+            st = st._replace(tfrac=out[False][3].cpu().double())
+            st_rhs = st_rhs._replace(tfrac=out[False][4].cpu().double())
+        v = V.to(d, dtype).requires_grad_(True)
+        before = dict(cuda_interp.launches)
+        o = ski.ski_mvm(kspec, k, st, v, state_rhs=st_rhs)
+        torch.sum(o * W.to(d, dtype)).backward()
+        if d == cuda_device:
+            # forward K2 in 2 launches (8 + 3 columns) and K3; backward K2
+            # (K3's adjoint) again and K3 (K2's adjoint)
+            assert cuda_interp.launches["interp_transpose"] \
+                - before["interp_transpose"] == 4
+            assert cuda_interp.launches["interp_apply_sum"] \
+                - before["interp_apply_sum"] == 2
+        out[d == "cpu"] = (o.detach(), [k[key].grad for key in sorted(k)],
+                           v.grad, st.tfrac, st_rhs.tfrac)
+    (og, gg, vg, _, _), (oc, gc, vc, _, _) = out[False], out[True]
+    assert _rel(og, oc) <= 1e-5
+    num = sum(float(((a.double().cpu() - b) ** 2).sum()) for a, b in zip(gg, gc))
+    den = sum(float((b ** 2).sum()) for b in gc)
+    assert math.sqrt(num / den) <= 1e-4
+    assert _rel(vg, vc) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_refresh_preconditioner_on_the_card(cuda_device):
+    """precond_refresh > 1: prepare_buffers caches the rank-15 pivoted
+    Cholesky on the card; refresh_preconditioner rebuilds it there without
+    a host read; the MLL with the cached M agrees with the CPU's on the
+    same probe normals (value rel <= 1e-4, gradient relerr <= 1e-3, the
+    BBMM bar)."""
+    from rpagp_torch.models import exact_gp
+    from rpagp_torch.models.exact_gp import ModelSpec
+    from rpagp_torch.ops import iterative
+    from rpagp_torch.ops.kernels import KernelSpec
+
+    spec = ModelSpec(kernel=KernelSpec.polynomial(J=10), cg_max_iters=30,
+                     precond_rank=15, num_probes=10, precond_refresh=10,
+                     max_cholesky_size=64)
+    rng = np.random.default_rng(11)
+    n, D = 6000, 8
+    x = torch.from_numpy(rng.standard_normal((n, D)).astype(np.float32))
+    y = torch.sin(x[:, 0]) + 0.1 * torch.from_numpy(
+        rng.standard_normal(n).astype(np.float32))
+    p0, b0 = exact_gp.init_model(spec, D, device="cpu",
+                                 generator=torch.Generator().manual_seed(0))
+    es = torch.from_numpy(rng.standard_normal((15, 10)).astype(np.float32))
+    eb = torch.from_numpy(rng.standard_normal((n, 10)).astype(np.float32))
+    out = {}
+    for d in (cuda_device, "cpu"):
+        def to(tree):
+            return {k: to(v) if isinstance(v, dict) else v.to(d, copy=True)
+                    for k, v in tree.items()}
+
+        p, b, xd = to(p0), to(b0), x.to(d)
+        b = exact_gp.prepare_buffers(spec, p, b, xd)
+        pre = b["precond_cache"]
+        assert pre.L.device.type == torch.device(d).type
+        if d == cuda_device:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                b2 = exact_gp.refresh_preconditioner(spec, p, b, xd)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            assert torch.equal(b2["precond_cache"].L, pre.L)
+        # the hyperparameters move; the cache stays at the old ones
+        p["kernel"]["raw_lengthscale"] = p["kernel"]["raw_lengthscale"] + 0.3
+        leaves = [p["raw_noise"], p["mean_const"], *p["kernel"].values()]
+        for t in leaves:
+            t.requires_grad_(True)
+        iq, ld = iterative.inv_quad_logdet_eps(spec, p, b, xd, y.to(d),
+                                               es.to(d), eb.to(d))
+        v = -0.5 * (iq + ld)
+        v.backward()
+        out[d == "cpu"] = (pre.L, float(v.detach()), [t.grad for t in leaves])
+    (Lg, vg, gg), (Lc, vc, gc) = out[False], out[True]
+    assert _rel(Lg, Lc) <= 1e-4
+    assert abs(vg - vc) <= 1e-4 * abs(vc)
+    num = sum(float(((a.double().cpu() - b.double()) ** 2).sum())
+              for a, b in zip(gg, gc))
+    den = sum(float((b.double() ** 2).sum()) for b in gc)
+    assert math.sqrt(num / den) <= 1e-3

@@ -93,7 +93,7 @@ def test_full_d_and_limit_gram_match(family, ard):
         return jnp.sum(K1 * R1) + jnp.sum(K2 * R2), (K1, K2)
 
     (vj, (K1j, K2j)), gj = jax.value_and_grad(jloss, has_aux=True)(params)
-    p = to_torch(params)
+    p = to_torch(params, device="cpu")
     for t in p.values():
         t.requires_grad_(True)
     xt = torch.from_numpy(x)
@@ -125,7 +125,7 @@ def test_matern_gradient_at_zero_distance(family):
     gxj = jax.grad(lambda xx: jnp.sum(jk.gram(jspec, params, {}, xx, xx) * R))(
         jnp.asarray(x))
     xt = torch.from_numpy(x).requires_grad_(True)
-    torch.sum(kernels.gram(spec, to_torch(params), {}, xt, xt)
+    torch.sum(kernels.gram(spec, to_torch(params, device="cpu"), {}, xt, xt)
               * torch.from_numpy(R)).backward()
     assert bool(torch.isfinite(xt.grad).all())
     assert _rel(xt.grad, gxj) <= 1e-4
@@ -233,7 +233,8 @@ def test_blocked_cholesky_with_pallas_leaf_on_a_dense_rpa_gram():
     K = np.asarray(jk.gram(jspec, jp, jb, jnp.asarray(x), jnp.asarray(x)))
     Khat = (K + 0.1 * np.eye(n)).astype(np.float32)
     R = np.tril(rng.standard_normal((n, n))).astype(np.float32)
-    assert _rel(kernels.gram(spec, to_torch(jp), to_torch(jb),
+    assert _rel(kernels.gram(spec, to_torch(jp, device="cpu"),
+                             to_torch(jb, device="cpu"),
                              torch.from_numpy(x), torch.from_numpy(x)),
                 K) <= 1e-5
 
@@ -263,7 +264,8 @@ def test_full_d_mvm_matches_jax():
     V = rng.standard_normal((90, 3)).astype(np.float32)
     want = jk.mvm(jspec, params, {}, jnp.asarray(x), jnp.asarray(x),
                   jnp.asarray(V), block_rows=32)
-    got = kernels.mvm(spec, to_torch(params), {}, torch.from_numpy(x),
+    got = kernels.mvm(spec, to_torch(params, device="cpu"), {},
+                      torch.from_numpy(x),
                       torch.from_numpy(x), torch.from_numpy(V),
                       block_rows=32)
     assert _rel(got, want) <= 1e-5

@@ -36,7 +36,7 @@ from rpagp_torch import mll as tmll
 from rpagp_torch import runner, train
 from rpagp_torch.models import exact_gp
 from rpagp_torch.models.exact_gp import ModelSpec
-from rpagp_torch.ops import iterative
+from rpagp_torch.ops import grid_solve, iterative
 from rpagp_torch.ops.kernels import KernelSpec
 from rpagp_torch.utils import datasets
 from rpagp_torch.utils.config import load_spec
@@ -130,7 +130,7 @@ def _port_grad(p):
 
 
 def _torch_params(params):
-    p = to_torch(params)
+    p = to_torch(params, device="cpu")
     for t in _leaves(p):
         t.requires_grad_(True)
     return p
@@ -151,7 +151,8 @@ def test_exact_mll_value_and_gradient_match(name, n):
         lambda p: jgp.exact_mll(jspec, p, buffers, jnp.asarray(x),
                                 jnp.asarray(y))))(params)
     p = _torch_params(params)
-    v = exact_gp.exact_mll(spec, p, to_torch(buffers), torch.from_numpy(x),
+    v = exact_gp.exact_mll(spec, p, to_torch(buffers, device="cpu"),
+                           torch.from_numpy(x),
                            torch.from_numpy(y))
     v.backward()
     assert _rel(float(v.detach()), float(vj)) <= 1e-5
@@ -171,7 +172,7 @@ def test_predict_and_cached_predictor_match(name, observation_noise):
     muj, varj = jgp.predict(jspec, params, buffers, jnp.asarray(x),
                             jnp.asarray(y), jnp.asarray(xs),
                             observation_noise=observation_noise)
-    p, b = to_torch(params), to_torch(buffers)
+    p, b = to_torch(params, device="cpu"), to_torch(buffers, device="cpu")
     xt, yt, xst = (torch.from_numpy(a) for a in (x, y, xs))
     mu, var = exact_gp.predict(spec, p, b, xt, yt, xst,
                                observation_noise=observation_noise)
@@ -194,7 +195,8 @@ def test_posterior_cov_matches(name, observation_noise):
     muj, covj = jposterior_cov(jspec, params, buffers, jnp.asarray(x),
                                    jnp.asarray(y), jnp.asarray(xs),
                                    observation_noise=observation_noise)
-    mu, cov = tmll.posterior_cov(spec, to_torch(params), to_torch(buffers),
+    mu, cov = tmll.posterior_cov(spec, to_torch(params, device="cpu"),
+                                 to_torch(buffers, device="cpu"),
                                  torch.from_numpy(x), torch.from_numpy(y),
                                  torch.from_numpy(xs),
                                  observation_noise=observation_noise)
@@ -224,7 +226,8 @@ def test_sample_posterior_with_given_normals(observation_noise):
                            jnp.asarray(y), jnp.asarray(xs), key,
                            num_samples=6, observation_noise=observation_noise)
     eps = np.asarray(jax.random.normal(key, (6, xs.shape[0]), jnp.float32))
-    args = (spec, to_torch(params), to_torch(buffers), torch.from_numpy(x),
+    args = (spec, to_torch(params, device="cpu"),
+            to_torch(buffers, device="cpu"), torch.from_numpy(x),
             torch.from_numpy(y), torch.from_numpy(xs))
     kw = dict(observation_noise=observation_noise)
     s = tmll.sample_posterior(*args, num_samples=6, eps=torch.from_numpy(eps),
@@ -248,10 +251,11 @@ def test_sample_posterior_with_given_normals(observation_noise):
 def test_mll_dispatch_takes_the_exact_branch():
     """At n <= max_cholesky_size without SKI, mll, posterior and
     make_predictor are the exact branch's, and mll equals the JAX
-    package's dispatched mll; above it (or with SKI) posterior_cov raises
-    with the ROADMAP item that ports it."""
+    package's dispatched mll; above it (or with SKI) posterior_cov is the
+    BBMM branch's iterative_posterior_cov (or the grid solver's
+    grid_posterior_cov)."""
     jspec, spec, params, buffers, x, y, xs = _problem("poly_j10")
-    p, b = to_torch(params), to_torch(buffers)
+    p, b = to_torch(params, device="cpu"), to_torch(buffers, device="cpu")
     xt, yt, xst = (torch.from_numpy(a) for a in (x, y, xs))
     v = tmll.mll(spec, p, b, xt, yt)
     assert float(v) == float(exact_gp.exact_mll(spec, p, b, xt, yt))
@@ -265,13 +269,16 @@ def test_mll_dispatch_takes_the_exact_branch():
     assert torch.equal(mu3, mu2) and torch.equal(var3, var2)
     big = dataclasses.replace(spec, max_cholesky_size=100)
     assert tmll._solver(big, 200) == "iterative"
-    with pytest.raises(NotImplementedError, match="iterative_posterior_cov"):
-        tmll.posterior_cov(big, p, b, xt, yt, xst)
+    mu4, cov4 = tmll.posterior_cov(big, p, b, xt, yt, xst)
+    mu5, cov5 = iterative.iterative_posterior_cov(big, p, b, xt, yt, xst)
+    assert torch.equal(mu4, mu5) and torch.equal(cov4, cov5)
     ski = dataclasses.replace(spec, kernel=dataclasses.replace(
         spec.kernel, ski=True, grid_size=8))
     assert tmll._solver(ski, 200) == "grid"
-    with pytest.raises(NotImplementedError, match="grid_posterior_cov"):
-        tmll.posterior_cov(ski, p, b, xt, yt, xst)
+    bs = exact_gp.prepare_buffers(ski, p, b, xt, y_train=yt)
+    mu6, cov6 = tmll.posterior_cov(ski, p, bs, xt, yt, xst)
+    mu7, cov7 = grid_solve.grid_posterior_cov(ski, p, bs, xt, yt, xst)
+    assert torch.equal(mu6, mu7) and torch.equal(cov6, cov7)
 
 
 def test_full_d_kernel_above_max_cholesky_size_takes_bbmm():
@@ -297,13 +304,15 @@ def test_full_d_kernel_above_max_cholesky_size_takes_bbmm():
     assert tmll._solver(spec, 150) == "iterative"
     p = _torch_params(params)
     iq, ld = iterative.inv_quad_logdet_eps(
-        spec, p, to_torch(buffers), torch.from_numpy(x), torch.from_numpy(y),
+        spec, p, to_torch(buffers, device="cpu"), torch.from_numpy(x),
+        torch.from_numpy(y),
         torch.from_numpy(es), torch.from_numpy(eb))
     v = -0.5 * (iq + ld + 150 * 1.8378770664093453)
     v.backward()
     assert _rel(float(v.detach()), float(vj)) <= 1e-4
     assert _grad_relerr(_port_grad(p), jax.device_get(gj)) <= 1e-3
-    vm = tmll.mll(spec, to_torch(params), to_torch(buffers),
+    vm = tmll.mll(spec, to_torch(params, device="cpu"),
+                  to_torch(buffers, device="cpu"),
                   torch.from_numpy(x), torch.from_numpy(y),
                   torch.Generator().manual_seed(0))
     assert math.isfinite(float(vm))
@@ -333,7 +342,8 @@ def test_training_trajectory_matches_jax():
     xt, yt = torch.from_numpy(x), torch.from_numpy(y)
     res = train.train_to_convergence(
         lambda p, b, xx, yy: -tmll.mll(spec, p, b, xx, yy) / n,
-        to_torch(jp), tr, loss_args=(to_torch(jb), xt, yt), sync_every=2)
+        to_torch(jp, device="cpu"), tr, loss_args=(to_torch(jb, device="cpu"),
+                                                   xt, yt), sync_every=2)
     assert len(res.losses) == len(jres.losses) == 5
     assert res.losses[-1] < res.losses[0]
     np.testing.assert_allclose(res.losses, jres.losses, rtol=1e-5)

@@ -72,9 +72,10 @@ def _setup(J, m, n, D=6, seed=0, **kw):
         jspec, jp["kernel"], jb["kernel"], jnp.asarray(x), jnp.asarray(y))
     jb = {**jb, "ski_state": state, "ski_uu": S4, "ski_uy": uy,
           "ski_u1": u1, "ski_vc": vc}
-    params = to_torch(jax.device_get(jp))
+    params = to_torch(jax.device_get(jp), device="cpu")
     buffers = exact_gp.prepare_buffers(
-        spec, params, to_torch(jax.device_get({"kernel": jb["kernel"]})),
+        spec, params, to_torch(jax.device_get({"kernel": jb["kernel"]}),
+                               device="cpu"),
         torch.from_numpy(x), y_train=torch.from_numpy(y))
     return (jspec, jp, jb, spec, params, buffers, jnp.asarray(x),
             jnp.asarray(y), torch.from_numpy(x), torch.from_numpy(y))
@@ -93,7 +94,7 @@ def setup(request):
 def test_prepared_buffers_match(setup):
     jspec, jp, jb, spec, params, buffers, xj, yj, x, y = setup
     # the JAX geometry, carried across, is the port's SKIState
-    st = to_torch(jax.device_get(jb["ski_state"]))
+    st = to_torch(jax.device_get(jb["ski_state"]), device="cpu")
     for f in st._fields:
         assert _rel(getattr(buffers["ski_state"], f), getattr(st, f)) <= 1e-5, f
     for key in ("ski_uu", "ski_uy", "ski_u1"):

@@ -89,10 +89,11 @@ def test_training_trajectory_matches_jax():
             **dataclasses.asdict(tr))),
         loss_args=(jb, xj, yj))
 
-    params = to_torch(jax.device_get(jp))
+    params = to_torch(jax.device_get(jp), device="cpu")
     xt, yt = torch.from_numpy(x), torch.from_numpy(y)
     buffers = exact_gp.prepare_buffers(
-        spec, params, to_torch(jax.device_get({"kernel": jb["kernel"]})),
+        spec, params, to_torch(jax.device_get({"kernel": jb["kernel"]}),
+                               device="cpu"),
         xt, y_train=yt)
     res = train.train_to_convergence(
         lambda p, b, xx, yy: -mll(spec, p, b, xx, yy) / n, params, tr,
