@@ -23,7 +23,14 @@ ported path through rpagp_torch.runner.run_split at full size:
   (20, 512, 512) ladder batch), then the flagship spec with
   solver="bbmm" at n = 1.84M (the cached preconditioner, LOVE at rank
   512, the gap to grid_mll). Phase 4 also holds the grid path's cached
-  predictor, posterior covariance and factor diagnostics.
+  predictor, posterior covariance and factor diagnostics;
+- phase 10: K1's failure contract on indefinite (512, 512) blocks (both
+  entry points: finite outputs, bit for bit the one-block kernel's);
+  product SKI, rp_ski_d2_j6 on protein (the exact grid solver at
+  p = J m^F = 1536; K1's (12, 16, 16) factor ladder and the p x p
+  factor's leaves; its CUDA MLL against the CPU one); SVGP, svgp_m512 on
+  elevators (its CUDA ELBO against the CPU one, all 50 epochs, no host
+  read within an epoch).
 
 Each phase prints its seconds.
 
@@ -1690,17 +1697,14 @@ def hold_interp(phase, label, tf, m, t, gen, tf_out=None, far=False):
                                      max_abs_err=max_abs(O, Op))}
 
 
-def _same_where_finite(out, ref):
-    """(same, non-finite count): K1 outputs `out` equal `ref` bit for bit
-    wherever they are finite, and are non-finite at the same places."""
+def _same_and_finite(out, ref):
+    """(same, non-finite count): K1 outputs `out` (L, Linv, ok) equal
+    `ref` bit for bit, and how many of out's values are not finite (0 by
+    K1's failure contract, also where a matrix fails)."""
     import torch
 
-    same, bad = True, 0
-    for a, b in zip(out, ref):
-        fa, fb = torch.isfinite(a), torch.isfinite(b)
-        same = same and torch.equal(fa, fb) and torch.equal(a[fa], b[fb])
-        bad += int((~fa).sum())
-    return same, bad
+    same = all(torch.equal(a, b) for a, b in zip(out, ref))
+    return same, sum(int((~torch.isfinite(a)).sum()) for a in out)
 
 
 def _timed_steps(step, steps, refresh_at=None, refresh=None):
@@ -1803,12 +1807,7 @@ def phase9a_ski_bbmm_sml(results):
     p0, b0 = exact_gp.init_model(spec, x.shape[1],
                                  generator=torch.Generator().manual_seed(0),
                                  device="cpu")
-
-    def to(tree, d):
-        return {k: to(v, d) if isinstance(v, dict) else v.to(d, copy=True)
-                for k, v in tree.items()}
-
-    params, kbuf = to(p0, dev), to(b0, dev)
+    params, kbuf = _to(p0, dev), _to(b0, dev)
     buffers = exact_gp.prepare_buffers(spec, params, kbuf, x, y_train=y)
     check(sorted(buffers) == ["kernel", "ski_state"],
           f"SKI + BBMM buffers {sorted(buffers)}")
@@ -1826,7 +1825,7 @@ def phase9a_ski_bbmm_sml(results):
     out = {}
     for d in ("cuda", "cpu"):
         torch.set_num_threads(os.cpu_count() if d == "cpu" else threads)
-        p, b = to(p0, d), to(b0, d)
+        p, b = _to(p0, d), _to(b0, d)
         xd, yd = x.to(d), y.to(d)
         b = exact_gp.prepare_buffers(spec, p, b, xd)
         lv = [p["raw_noise"], p["mean_const"], *p["kernel"].values()]
@@ -1868,12 +1867,14 @@ def phase9a_ski_bbmm_sml(results):
             ref = cuda_chol.chol_linv_cuda(Tj, cuda_chol.ONE_BLOCK)
             okp = cuda_chol.chol_linv_plain(Tj)[2]
             torch.cuda.synchronize()
-            same, bad = _same_where_finite(out, ref)
+            same, bad = _same_and_finite(out, ref)
             levels.append(f"x{mult:g}: ok {int(out[2].sum())}/{T.shape[0]} "
                           f"(one-block {int(ref[2].sum())}, cuSOLVER "
                           f"{int(okp.sum())}), {bad} non-finite outputs")
             check(same, f"K1 {tuple(T.shape)} at jitter x{mult:g}: not bit "
                         f"for bit the one-block kernel's")
+            check(bad == 0, f"K1 {tuple(T.shape)} at jitter x{mult:g}: {bad} "
+                            f"non-finite outputs")
         ms_b = cuda_ms(lambda: cuda_chol.chol_linv_cuda(Tj, "chol_linv_batched"))
         ms_o = cuda_ms(lambda: cuda_chol.chol_linv_cuda(Tj, cuda_chol.ONE_BLOCK),
                        iters=2)
@@ -1882,8 +1883,8 @@ def phase9a_ski_bbmm_sml(results):
                             flops=T.shape[0] * 2 * m_grid**3 / 3)
         say(9, f"K1 ladder batch {tuple(T.shape)} on the sml SKI model's "
                f"Toeplitz blocks, every ladder level bit for bit the "
-               f"one-block kernel's (L, Linv, ok) where finite, non-finite "
-               f"at the same places: "
+               f"one-block kernel's (L, Linv, ok) and every output finite, "
+               f"failed blocks too: "
                f"{'; '.join(levels)}; at x{grid_solve._LADDER[-1]:g}: "
                f"{ms_b:.4f} ms vs one-block {ms_o:.4f} ms, cuSOLVER "
                f"{ms_c:.4f} ms, bound {bms:.4f} ms ({bby})")
@@ -2102,6 +2103,342 @@ def phase9b_ski_bbmm_houseelectric(results):
            f"20 steps (recorded; the sml model's bar is 5e-3)")
 
 
+SPEC_PRODUCT = os.path.join(ROOT, "specs", "rp_ski_d2_j6.json")
+SPEC_SVGP = os.path.join(ROOT, "specs", "svgp_m512.json")
+N_PROTEIN_TRAIN, N_PROTEIN_TEST = 41_157, 4_573  # synthetic protein split 0
+# test RMSE of the JAX package's run_split on the same splits, on the CPU
+# with seed 0 (scripts/torch_jax_reference_rmse.py): rp_ski_d2_j6 on
+# protein after 10 steps, svgp_m512 on elevators after its 50 epochs
+JAX_RMSE_PROTEIN_D2_10 = 0.3435
+JAX_RMSE_ELEVATORS_SVGP = 0.3542
+
+
+def _to(tree, d):
+    """A copy of a dict tree of tensors on device d."""
+    return {k: _to(v, d) if isinstance(v, dict) else v.to(d, copy=True)
+            for k, v in tree.items()}
+
+
+def phase10_product_ski_and_svgp(results):
+    """The last two specs: (a) K1's failure contract on indefinite blocks at
+    b = 512; (b) product SKI, rp_ski_d2_j6 (J = 6 degree-2 RBF components,
+    m = 16 per factor, M = 256, p = 1536 on the exact grid solver) on the
+    full synthetic protein split 0; (c) SVGP, svgp_m512 (M = 512 inducing
+    points, batch 1024, lr 0.01, 50 epochs) on the full elevators split 0."""
+    phase10a_k1_failure_contract()
+    phase10b_product_ski(results)
+    phase10c_svgp()
+
+
+def phase10a_k1_failure_contract():
+    """Phase 10 (a): indefinite (512, 512) blocks through both K1 entry
+    points: finite outputs, ok as cuSOLVER's cholesky_ex reports, bit for
+    bit the one-block kernel's, L Linv = I to b eps."""
+    import torch
+
+    from rpagp_torch.ops import cuda_chol
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(10)
+    b = 512
+    eye = torch.eye(b, device=dev)
+    A = _spd(4, b, gen, dev)
+    # pivots 5 (panel 0) and 32 * 9 + 5 fail first; matrix 2 a symmetric
+    # Gaussian matrix (indefinite from its first panels on); matrix 3 SPD
+    for i, s0 in enumerate((5, 32 * 9 + 5)):
+        A[i, s0:, s0:] -= 10.0 * eye[s0:, s0:]
+    X = torch.randn(b, b, generator=gen).to(dev)
+    A[2] = 0.5 * (X + X.mT)
+    leaf = _spd(1, b, gen, dev)
+    s0 = 32 * 15 + 5  # the first failing pivot in the last panel
+    leaf[0, s0:, s0:] -= 10.0 * eye[s0:, s0:]
+    lines = []
+    for name, T in (("chol_linv_batched", A.contiguous()),
+                    ("chol_linv", leaf.contiguous())):
+        out = cuda_chol.chol_linv_cuda(T, name)
+        ref = cuda_chol.chol_linv_cuda(T, cuda_chol.ONE_BLOCK)
+        okp = (torch.linalg.cholesky_ex(T).info == 0).to(T.dtype)
+        torch.cuda.synchronize()
+        same, bad = _same_and_finite(out, ref)
+        L, Linv = out[0].double(), out[1].double()
+        res = torch.linalg.norm(L @ Linv - eye.double(), dim=(1, 2)) / (
+            torch.linalg.norm(L, dim=(1, 2)) * torch.linalg.norm(Linv,
+                                                                 dim=(1, 2)))
+        check(same, f"K1 {name} {tuple(T.shape)} indefinite: not bit for bit "
+                    f"the one-block kernel's")
+        check(bad == 0, f"K1 {name} {tuple(T.shape)} indefinite: {bad} "
+                        f"non-finite outputs")
+        check(torch.equal(out[2], okp), f"K1 {name} ok {out[2].tolist()} vs "
+                                        f"cuSOLVER {okp.tolist()}")
+        check(float(res.max()) <= b * 2.0**-24,
+              f"K1 {name}: |L Linv - I| {float(res.max()):.2e}")
+        lines.append(f"{name} {tuple(T.shape)}: ok {out[2].tolist()} "
+                     f"(cuSOLVER {okp.tolist()}), 0 non-finite outputs, bit "
+                     f"for bit the one-block kernel's, |L Linv - I| / "
+                     f"(|L| |Linv|) <= {float(res.max()):.2e}, max |Linv| "
+                     f"{float(out[1].abs().max()):.3g}")
+    say(10, "K1 on indefinite blocks: " + "; ".join(lines))
+
+
+def phase10b_product_ski(results):
+    """Phase 10 (b): rp_ski_d2_j6 on the full synthetic protein split 0."""
+    import torch
+
+    from rpagp_torch import runner
+    from rpagp_torch.models import exact_gp
+    from rpagp_torch.ops import (cuda_chol, cuda_gram, cuda_interp,
+                                 grid_solve, ski_product)
+    from rpagp_torch.train import _leaves
+    from rpagp_torch.utils.config import load_spec
+
+    dev = torch.device("cuda")
+    counters = (cuda_chol.launches, cuda_interp.launches, cuda_gram.launches)
+    exp = load_spec(SPEC_PRODUCT)
+    exp = dataclasses.replace(exp, train=dataclasses.replace(exp.train,
+                                                             max_iters=10))
+    spec = exp.model
+    kspec = spec.kernel
+    split = _split("protein")
+    check(split.train_x.shape == (N_PROTEIN_TRAIN, 9)
+          and split.test_x.shape[0] == N_PROTEIN_TEST,
+          f"unexpected protein split {split.train_x.shape}")
+    x = torch.as_tensor(split.train_x, device=dev)
+    y = torch.as_tensor(split.train_y, device=dev)
+    n = x.shape[0]
+    p_rank = ski_product.grid_rank(kspec)
+    check(ski_product.is_product(kspec) and p_rank == 1536
+          and grid_solve.use_grid_solver(spec, n),
+          f"rp_ski_d2_j6: p = {p_rank}, not on the grid solver")
+    p0, b0 = exact_gp.init_model(spec, x.shape[1],
+                                 generator=torch.Generator().manual_seed(0),
+                                 device="cpu")
+
+    # the CUDA grid_mll against the port's CPU one: run_split's initial
+    # params, projection and data, each side preparing its own buffers
+    threads = torch.get_num_threads()
+    out = {}
+    for d in ("cuda", "cpu"):
+        torch.set_num_threads(os.cpu_count() if d == "cpu" else threads)
+        pd, bd = _to(p0, d), _to(b0, d)
+        t0 = time.perf_counter()
+        bufs = exact_gp.prepare_buffers(spec, pd, bd, x.to(d), y_train=y.to(d))
+        lv = _leaves(pd)
+        for t in lv:
+            t.requires_grad_(True)
+        v = grid_solve.grid_mll(spec, pd, bufs, x.to(d), y.to(d))
+        v.backward()
+        out[d] = (float(v.detach()), [t.grad for t in lv],
+                  time.perf_counter() - t0)
+        if d == "cuda":
+            params, buffers = _to(p0, dev), bufs
+    torch.set_num_threads(threads)
+    (vg, gg, sg), (vc, gc, sc) = out["cuda"], out["cpu"]
+    erel, grel = abs(vg - vc) / abs(vc), _grad_relerr(gg, gc)
+    st = buffers["ski_state"]
+    say(10, f"grid_mll rp_ski_d2_j6 (J={kspec.J}, F=2, m={kspec.grid_size}, "
+            f"M={st.m ** 2}, p={p_rank}; geometry rows {st.tfrac.shape[0]}, "
+            f"S {tuple(buffers['ski_uu'].shape)}) n={n}: value cuda {vg:.8g} "
+            f"cpu {vc:.8g} rel {erel:.2e}; grad relerr {grel:.2e}; prepare + "
+            f"value+grad {sg:.2f} s cuda, {sc:.2f} s cpu ({os.cpu_count()} "
+            f"threads)")
+    check(erel <= 1e-5, f"product grid_mll value rel {erel:.2e} > 1e-5")
+    check(grel <= 1e-4, f"product grid_mll grad relerr {grel:.2e} > 1e-4")
+
+    # K1 on the (12, 16, 16) factor ladder (padded to 32 by the wrapper)
+    with torch.no_grad():
+        Tf = ski_product.toeplitz_blocks_factors(kspec, params["kernel"], st)
+        eye = torch.eye(Tf.shape[-1], device=dev)
+        Tj = (Tf + (spec.grid_jitter * Tf[:, 0, 0])[:, None, None]
+              * eye).contiguous()
+        outk = cuda_chol.chol_linv_cuda(Tj, "chol_linv_batched")
+        ref = cuda_chol.chol_linv_cuda(Tj, cuda_chol.ONE_BLOCK)
+        Lp, Lip, okp = cuda_chol.chol_linv_plain(Tj)
+        torch.cuda.synchronize()
+        same, bad = _same_and_finite(outk, ref)
+        eL, eLi = rel(outk[0], Lp), rel(outk[1], Lip)
+        check(same and bad == 0, f"K1 {tuple(Tj.shape)}: bit for bit "
+                                 f"{same}, {bad} non-finite")
+        check(torch.equal(outk[2], okp) and bool((okp == 1).all()),
+              f"K1 {tuple(Tj.shape)} ok {outk[2].tolist()}")
+        check(eL <= 1e-5 and eLi <= 1e-5,
+              f"K1 {tuple(Tj.shape)} rel L {eL:.2e} Linv {eLi:.2e}")
+        ms_b = cuda_ms(lambda: cuda_chol.chol_linv_cuda(Tj,
+                                                        "chol_linv_batched"),
+                       iters=20)
+        ms_o = cuda_ms(lambda: cuda_chol.chol_linv_cuda(
+            Tj, cuda_chol.ONE_BLOCK), iters=20)
+        ms_c = cuda_ms(lambda: cuda_chol.chol_linv_plain(Tj), iters=20)
+        bms, bby, _ = bound(4 * 3 * Tj.numel(),
+                            flops=Tj.shape[0] * 2 * Tj.shape[-1] ** 3 / 3)
+        G, C = cuda_chol.coop_grid(Tj.shape[0], 32, dev)
+    say(10, f"K1 factor ladder {tuple(Tj.shape)} (padded to 32; G = {G}, "
+            f"C = {C}): bit for bit the one-block kernel's, rel L {eL:.2e} "
+            f"Linv {eLi:.2e} against cuSOLVER; {ms_b:.4f} ms vs one-block "
+            f"{ms_o:.4f} ms, cuSOLVER {ms_c:.4f} ms, bound {bms:.5f} ms "
+            f"({bby})")
+
+    # run_split, 10 steps of the spec's 300
+    _zero(counters)
+    grid_solve.reset_stats()
+    torch.cuda.reset_peak_memory_stats()
+    timings = {}
+    m = runner.run_split(exp, split, seed=0, device=dev, timings=timings)
+    torch.cuda.synchronize()
+    launches = {k: v for c in counters for k, v in c.items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    say(10, f"run_split rp_ski_d2_j6 on protein split 0 (max_iters 10 of "
+            f"300): prepare {timings['prepare_s']:.3f} s, train "
+            f"{timings['train_s']:.3f} s ({m['iterations']} steps), posterior "
+            f"{timings['posterior_s']:.3f} s; rmse {m['rmse']:.4f} (the JAX "
+            f"package on the CPU: {JAX_RMSE_PROTEIN_D2_10}) nll "
+            f"{m['nll']:.4f} mll {m['mll']:.5f}; peak memory "
+            f"{peak / 2**30:.2f} GiB; host reads {grid_solve.stats['host_reads']}"
+            f"; ladder escalations T {grid_solve.stats['t_escalations']} C "
+            f"{grid_solve.stats['c_escalations']}; launches {launches}")
+    for k in ("chol_linv", "chol_linv_batched"):
+        check(launches.get(k, 0) > 0, f"kernel {k} not launched on the "
+                                      f"product SKI path")
+        results[k].setdefault("launches_by_path", {})["product_ski"] = \
+            launches[k]
+    check(set(launches) <= {"chol_linv", "chol_linv_batched"},
+          f"the product SKI path launched {launches}")
+    for k in ("rmse", "nll", "mll"):
+        check(math.isfinite(m[k]), f"{k} not finite")
+    check(m["rmse"] < 1.0, f"rmse {m['rmse']:.4f} >= 1.0: learned nothing")
+
+    # 5 timed steps at the same size, from the initial params
+    _, step = _adam_step(spec, _to(params, dev), [buffers], x, y, None)
+    step()  # warm-up
+    syncs = _count_syncs(step)
+    _zero(counters)
+    grid_solve.reset_stats()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, fwd_ms, _ = _timed_steps(step, 5)
+    per_step = {k: v / 5 for c in counters for k, v in c.items() if v}
+    reads = grid_solve.stats["host_reads"] / 5
+    step_peak = torch.cuda.max_memory_allocated()
+    med = statistics.median(step_ms)
+    busy, by = _device_ms(step, 3, ("chol_linv_coop_kernel",))
+    k1 = by["chol_linv_coop_kernel"]
+    say(10, f"5 timed steps: median {med:.2f} ms/step (all "
+            f"{', '.join(f'{v:.2f}' for v in step_ms)}; forward median "
+            f"{statistics.median(fwd_ms):.2f} ms); device busy {busy:.2f} "
+            f"ms/step (idle {100 * (1 - busy / med):.0f}%), K1 {k1:.3f} ms "
+            f"({100 * k1 / max(busy, 1e-9):.1f}%); launches per step "
+            f"{per_step}; host reads a step {reads:g} (ladder flags); "
+            f"device->host syncs in one step {sum(syncs.values())} {syncs}; "
+            f"peak memory of a step {step_peak / 2**30:.2f} GiB")
+
+
+def phase10c_svgp():
+    """Phase 10 (c): svgp_m512 on the full synthetic elevators split 0."""
+    import torch
+
+    from rpagp_torch import runner
+    from rpagp_torch.models import svgp
+    from rpagp_torch.ops import cuda_chol, cuda_gram, cuda_interp
+    from rpagp_torch.train import _leaves
+    from rpagp_torch.utils.config import load_spec
+
+    dev = torch.device("cuda")
+    counters = (cuda_chol.launches, cuda_interp.launches, cuda_gram.launches)
+    exp = load_spec(SPEC_SVGP)
+    spec = exp.model
+    split = _split("elevators")
+    check(split.train_x.shape == (N_ELEVATORS_TRAIN, 18)
+          and split.test_x.shape[0] == N_ELEVATORS_TEST,
+          f"unexpected elevators split {split.train_x.shape}")
+    x = torch.as_tensor(split.train_x, device=dev)
+    y = torch.as_tensor(split.train_y, device=dev)
+    n, b = x.shape[0], exp.batch_size
+    params, buffers = svgp.init_svgp_params(
+        spec, x, exp.num_inducing, generator=torch.Generator().manual_seed(0),
+        device=dev)
+
+    # the CUDA ELBO against the CPU one on one batch, at the initial params
+    idx = torch.randperm(n, generator=torch.Generator().manual_seed(1))[:b]
+    out = {}
+    for d in ("cuda", "cpu"):
+        pd = _to(params, d)
+        lv = _leaves(pd)
+        for t in lv:
+            t.requires_grad_(True)
+        v = svgp.elbo(spec, pd, _to(buffers, d), x[idx.to(dev)].to(d),
+                      y[idx.to(dev)].to(d), n)
+        v.backward()
+        out[d] = (float(v.detach()), [t.grad for t in lv])
+    (vg, gg), (vc, gc) = out["cuda"], out["cpu"]
+    erel, grel = abs(vg - vc) / abs(vc), _grad_relerr(gg, gc)
+    say(10, f"ELBO svgp_m512 (M={exp.num_inducing}, batch {b}, D=18) at the "
+            f"initial params: value cuda {vg:.8g} cpu {vc:.8g} rel "
+            f"{erel:.2e}; grad relerr {grel:.2e} (inducing points included)")
+    check(erel <= 1e-5, f"SVGP ELBO value rel {erel:.2e} > 1e-5")
+    check(grel <= 1e-4, f"SVGP ELBO grad relerr {grel:.2e} > 1e-4")
+
+    # run_split with all of the spec's epochs
+    _zero(counters)
+    torch.cuda.reset_peak_memory_stats()
+    timings = {}
+    m = runner.run_split(exp, split, seed=0, device=dev, timings=timings)
+    torch.cuda.synchronize()
+    launches = {k: v for c in counters for k, v in c.items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    steps = n // b
+    epochs = max(1, exp.train.max_iters // 10)
+    say(10, f"run_split svgp_m512 on elevators split 0 ({epochs} epochs of "
+            f"{steps} steps): prepare {timings['prepare_s']:.3f} s, train "
+            f"{timings['train_s']:.3f} s ({m['iterations']} epochs), "
+            f"posterior {timings['posterior_s']:.3f} s; rmse {m['rmse']:.4f} "
+            f"(the JAX package on the CPU: {JAX_RMSE_ELEVATORS_SVGP}) nll "
+            f"{m['nll']:.4f} mll {m['mll']:.5f}; peak memory "
+            f"{peak / 2**30:.2f} GiB; kernel launches {launches} (none: the "
+            f"SVGP path has no kernel of this package)")
+    check(m["iterations"] == epochs, f"{m['iterations']} epochs")
+    for k in ("rmse", "nll", "mll"):
+        check(math.isfinite(m[k]), f"{k} not finite")
+    check(m["rmse"] < 1.0, f"rmse {m['rmse']:.4f} >= 1.0: learned nothing")
+
+    # an epoch and a step as train_svgp takes them: host reads, then times
+    g = torch.Generator(device=dev).manual_seed(2)
+    p = {k: ({kk: vv.clone().requires_grad_(True) for kk, vv in v.items()}
+             if isinstance(v, dict) else v.clone().requires_grad_(True))
+         for k, v in params.items()}
+    opt = torch.optim.Adam(_leaves(p), lr=exp.train.lr)
+
+    def batches():
+        take = torch.randperm(n, generator=g, device=dev)[:steps * b]
+        return x[take].reshape(steps, b, -1), y[take].reshape(steps, b)
+
+    xs, ys = batches()
+    svgp._epoch(spec, p, buffers, opt, xs[:1], ys[:1], n)  # warm-up
+    step_syncs = _count_syncs(
+        lambda: svgp._epoch(spec, p, buffers, opt, xs[:1], ys[:1], n))
+    epoch_syncs = _count_syncs(lambda: svgp.train_svgp(
+        spec, params, buffers, x, y, generator=g, batch_size=b, num_epochs=1,
+        lr=exp.train.lr))
+    epoch_ms = []
+    for _ in range(3):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        xs, ys = batches()
+        svgp._epoch(spec, p, buffers, opt, xs, ys, n)
+        e1.record()
+        torch.cuda.synchronize()
+        epoch_ms.append(e0.elapsed_time(e1))
+    med = statistics.median(epoch_ms)
+    busy, _ = _device_ms(lambda: svgp._epoch(spec, p, buffers, opt, xs, ys,
+                                             n), 1, ())
+    say(10, f"epochs of {steps} steps: {', '.join(f'{v:.2f}' for v in epoch_ms)}"
+            f" ms (median {med / 1e3:.4f} s an epoch, {med / steps:.3f} "
+            f"ms/step); device busy {busy / steps:.3f} ms/step (idle "
+            f"{100 * (1 - busy / med):.0f}%); device->host syncs in a step "
+            f"{sum(step_syncs.values())} {step_syncs}, in an epoch of "
+            f"train_svgp {sum(epoch_syncs.values())} {epoch_syncs}")
+    check(sum(step_syncs.values()) == 0, f"a step reads the host: {step_syncs}")
+    check(sum(epoch_syncs.values()) == 1,
+          f"an epoch reads the host {sum(epoch_syncs.values())} times")
+
+
 def main():
     import torch
 
@@ -2116,7 +2453,8 @@ def main():
             lambda: phase5_gram_kernels(results), phase6_bbmm_mll,
             lambda: phase7_bbmm_main_path(results),
             lambda: phase8_dense_main_path(results),
-            lambda: phase9_ski_bbmm(results))):
+            lambda: phase9_ski_bbmm(results),
+            lambda: phase10_product_ski_and_svgp(results))):
         tp = time.perf_counter()
         fn()
         say(phase, f"phase {phase} took {time.perf_counter() - tp:.1f} s")
@@ -2136,7 +2474,8 @@ def main():
             "bound_by", "library_ms")
     # launches: on the grid or BBMM path's run_split; launches_by_path:
     # on each path's run_split that launched the kernel (K1's leaf on the
-    # grid and dense paths, K2 and K3 on the grid and both SKI + BBMM runs)
+    # grid, dense and product SKI paths, its ladder on the grid and product
+    # SKI paths, K2 and K3 on the grid and both SKI + BBMM runs)
     kernels = [{"name": k, "route": "cuda", "source": source[k],
                 "replaces": replaces[k], **{f: r[f] for f in keys},
                 "launches_by_path": r["launches_by_path"]}

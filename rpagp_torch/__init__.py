@@ -18,8 +18,12 @@ each path runs written in CUDA (csrc/):
 - the dense Cholesky branch (ops/exact.py, models/exact_gp.py: exact
   MLL, posterior, covariance, samples) with the full-D and limit kernels
   and every projection family: K1 chol_linv on each 512 leaf of
-  block_chol.blocked_cholesky.
-See ROADMAP.md for the rest.
+  block_chol.blocked_cholesky;
+- product SKI (ops/ski_product.py), lowered to the exact grid solver: K1
+  on the factor Toeplitz ladder and the p x p factor's leaves;
+- SVGP (models/svgp.py): the whitened inducing-point ELBO and minibatch
+  training.
+Every spec in specs/ runs; see ROADMAP.md for the rest.
 
 Numerics: f32 throughout with TF32 off. The grid solver's Cholesky
 factors sit at the edge of f32 conditioning, so every matmul runs in

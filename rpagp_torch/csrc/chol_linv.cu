@@ -18,14 +18,24 @@
 //   2. invert it in shared memory (forward substitution, one column per
 //      thread);
 //   3. inverse rows: Linv[o:o+32, :o] = -Dinv (L[o:o+32, :o] Linv[:o, :o]);
-//   4. panel: L[o+32:, o:o+32] = W[o+32:, o:o+32] D^{-T} (substitution);
+//   4. panel: L[o+32:, o:o+32] = W[o+32:, o:o+32] D^{-T} (substitution),
+//      0 in a failed pivot's column;
 //   5. trailing update of the lower-triangular 32x32 tiles of W[o+32:, o+32:].
 // Steps 3 and 5 are 32x32 tile products staged through shared memory.
 //
 // Failure contract (pallas_chol._rank1_block): a pivot d <= 0 (or NaN)
-// takes rsd = 1 and a unit column, ok = 0. Every output is meant to stay
-// finite; at b = 512 a failed matrix can overflow to non-finite outputs
-// (ROADMAP queue 1 item 2), so callers drop an ok = 0 factor.
+// takes rsd = 1 and a unit column, ok = 0, and the failed column is
+// decoupled from the rest of the matrix: the diagonal tile's rows below
+// it get a 0 there (the unit column), and so do the panel rows below the
+// tile (step 4 overwrites their entry, W's residual over the unit pivot,
+// with 0). The trailing update is then the Schur complement of the matrix
+// with that row and column taken out, so a failed matrix's outputs stay
+// finite garbage: L is the factor of the decoupled matrix, Linv its
+// inverse. Only that branch differs from the plain elimination, so a
+// matrix with ok = 1 never takes it, and the first failing pivot, hence
+// ok, is what it would be without it. (Leaving W's residual in the panel
+// rows instead, against a column the diagonal tile never eliminated,
+// grew panel by panel and overflowed at b = 512.)
 // L is exactly lower-triangular; only the lower triangle of A is read.
 //
 // What bounds it on the H100: one SM per matrix, with the ~b^3/3 FMAs
@@ -47,6 +57,7 @@ chol_linv_kernel(const float* __restrict__ A_all, float* L_all,
   __shared__ Tile sA, sB, sD, sDinv;
   __shared__ float sCol[NB];
   __shared__ int sOk;
+  __shared__ unsigned sFail;  // the panel's failed pivots, bit j = column j
 
   const int tid = threadIdx.x;
   const size_t off = (size_t)blockIdx.x * b * b;
@@ -71,6 +82,7 @@ chol_linv_kernel(const float* __restrict__ A_all, float* L_all,
 
     // 1. diagonal block, unblocked, in shared memory
     load_tile(sD, L, b, o, o);
+    if (tid == 0) sFail = 0u;
     __syncthreads();
     for (int j = 0; j < NB; ++j) {
       float d = sD[j][j];
@@ -81,7 +93,10 @@ chol_linv_kernel(const float* __restrict__ A_all, float* L_all,
         if (tid >= j) v = okj ? sD[tid][j] * rsd : (tid == j ? 1.0f : 0.0f);
         sCol[tid] = v;
       }
-      if (tid == 0 && !okj) sOk = 0;
+      if (tid == 0 && !okj) {
+        sOk = 0;
+        sFail |= 1u << j;
+      }
       __syncthreads();
       for (int e = tid; e < NB * NB; e += NT) {
         int i = e >> 5, k = e & 31;
@@ -138,8 +153,12 @@ chol_linv_kernel(const float* __restrict__ A_all, float* L_all,
     //    forward substitution, one row per thread. (A product with the
     //    explicit Dinv, as the TPU kernel does, loses the last pivots of
     //    the ill-conditioned ladder blocks to rounding.)
+    //    A failed pivot's column gets 0 after the substitution, as the
+    //    diagonal tile's rows below it do (its column of D is the unit
+    //    column, so its entry enters no other column's substitution).
     const int s0 = o + NB;
     __syncthreads();
+    const unsigned fail = sFail;
     for (int i = s0 + tid; i < b; i += NT) {
       float* row = L + (size_t)i * b + o;
       float l[NB];
@@ -151,6 +170,10 @@ chol_linv_kernel(const float* __restrict__ A_all, float* L_all,
 #pragma unroll
         for (int q = 0; q < c; ++q) x -= l[q] * sD[c][q];
         l[c] = x / sD[c][c];
+      }
+      if (fail) {
+#pragma unroll
+        for (int c = 0; c < NB; ++c) l[c] = (fail >> c) & 1u ? 0.0f : l[c];
       }
 #pragma unroll
       for (int c = 0; c < NB; ++c) row[c] = l[c];

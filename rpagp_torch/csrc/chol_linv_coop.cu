@@ -13,9 +13,13 @@
 //
 // Contract: that of the one-block kernel (chol_linv.cu), per matrix. b is
 // a multiple of 32; only tril(A) is read; L is exactly lower-triangular; a
-// pivot d <= 0 (or NaN) takes rsd = 1 and a unit column, and that matrix
-// alone gets ok = 0 (its outputs can overflow at b = 512: ROADMAP queue 1
-// item 2). Each element goes
+// pivot d <= 0 (or NaN) takes rsd = 1 and a unit column, that matrix alone
+// gets ok = 0, and the failed column is decoupled: the panel rows below
+// the diagonal tile get a 0 in it, as the tile's own rows do, so a failed
+// matrix's outputs stay finite (the factor and inverse of the matrix with
+// that row and column taken out). The diagonal chain records each panel's
+// failed pivots as a bit mask in `fail` (B x b/32 words) for the blocks
+// that substitute the panel's rows. Each element goes
 // through the one-block kernel's operations in its order (the tile
 // products through the same routines, chol_tile.cuh), so the two agree
 // bit for bit on every matrix.
@@ -40,8 +44,8 @@
 // block takes items of several. Per panel kp (T = b/32 - 1 - kp panels
 // below it), two phases, each ended by grid.sync():
 //   A. chain blocks, the look-ahead: the rows of row tile kp+1,
-//      L <- W D^{-T}; their update of the diagonal tile (kp+1, kp+1); that
-//      tile's factor, the next panel's D. The others: the rows of row
+//      L <- W D^{-T} (0 in a failed pivot's column); their update of the
+//      diagonal tile (kp+1, kp+1); that tile's factor, the next panel's D. The others: the rows of row
 //      tiles kp+2 .., and the inverse tiles of row kp,
 //      Linv[kp, cj] = -Dinv acc[kp, cj].
 //   B. chain blocks: the next panel's Dinv. The others: the other lower
@@ -137,17 +141,18 @@ __device__ __forceinline__ void solve_row(float l[NB], const TileT sDT) {
 }
 
 // The diagonal tile s (the Schur complement's lower triangle, in shared
-// memory) to D = chol(s): D^T in sDT, D in L at (o, o). Returns false on
-// thread 0 if a pivot failed. On one warp, lane i keeping row i in
-// registers: a column costs a shuffle and two warp barriers (chol_linv.cu:
-// two block barriers), the next pivot's update is made first from the
-// lane's own value, and lanes outside a column's rows keep their values by
-// a select, not a branch. Called by all NT threads of the block; ends with
-// a block barrier.
+// memory) to D = chol(s): D^T in sDT, D in L at (o, o), the failed pivots'
+// mask in *sFail and *failp. Returns false on thread 0 if a pivot failed.
+// On one warp, lane i keeping row i in registers: a column costs a shuffle
+// and two warp barriers (chol_linv.cu: two block barriers), the next
+// pivot's update is made first from the lane's own value, and lanes
+// outside a column's rows keep their values by a select, not a branch.
+// Called by all NT threads of the block; ends with a block barrier.
 __device__ __forceinline__ bool factor_tile(Tile s, TileT sDT, float* sCol,
+                                            unsigned* sFail, unsigned* failp,
                                             float* L, int b, int o) {
   const int tid = threadIdx.x;
-  bool all = true;
+  unsigned fail = 0u;
   if (tid < NB) {
     const int i = tid;
     float a[NB];
@@ -161,7 +166,7 @@ __device__ __forceinline__ bool factor_tile(Tile s, TileT sDT, float* sCol,
       const float rsd = okj ? 1.0f / sqrtf(d) : 1.0f;
       const float vj = okj ? a[j] * rsd : (i == j ? 1.0f : 0.0f);
       const float v = i >= j ? vj : 0.0f;
-      all = all && okj;
+      fail |= okj ? 0u : 1u << j;
       // on lane j+1 the same FMA as its a[j+1] below (sCol[j+1] is its v)
       if (j + 1 < NB) next = a[j + 1] - v * v;
       sCol[i] = v;
@@ -181,9 +186,13 @@ __device__ __forceinline__ bool factor_tile(Tile s, TileT sDT, float* sCol,
     for (int m = 0; m < NB / 4; ++m)
       row[m] = make_float4(a[4 * m], a[4 * m + 1], a[4 * m + 2],
                            a[4 * m + 3]);
+    if (i == 0) {
+      *sFail = fail;
+      *failp = fail;
+    }
   }
   __syncthreads();
-  return all;
+  return fail == 0u;
 }
 
 // Dinv = D^{-1} from sDT, in sDinv and in Linv at (o, o): lane c solves
@@ -224,9 +233,14 @@ __device__ __forceinline__ void invert_tile(const TileT sDT, Tile sDinv,
 }
 
 // The rows of row tile ti in panel column o, L <- W D^{-T}, one row per
-// thread of the first warp; each row also to out (a tile) if given.
+// thread of the first warp; each row also to out (a tile) if given. Then
+// the columns of the panel's failed pivots (*sFail) get 0: a failed
+// pivot's column of D is the unit column, so its entry (W's residual over
+// a unit pivot) entered no other column's substitution, and a matrix with
+// ok = 1 runs the substitution and nothing else.
 __device__ __forceinline__ void solve_rows(float* L, int b, int ti, int o,
-                                           const TileT sDT, Tile out) {
+                                           const TileT sDT,
+                                           const unsigned* sFail, Tile out) {
   const int tid = threadIdx.x;
   if (tid < NB) {
     float4* row = reinterpret_cast<float4*>(L + (size_t)(ti * NB + tid) * b
@@ -246,6 +260,11 @@ __device__ __forceinline__ void solve_rows(float* L, int b, int ti, int o,
     if (out != nullptr) {
 #pragma unroll
       for (int c = 0; c < NB; ++c) out[tid][c] = l[c];
+    }
+    for (unsigned f = *sFail; f != 0u; f &= f - 1u) {
+      const int c = __ffs(f) - 1;
+      reinterpret_cast<float*>(row)[c] = 0.0f;
+      if (out != nullptr) out[tid][c] = 0.0f;
     }
   }
 }
@@ -300,16 +319,18 @@ __device__ __forceinline__ void fetch_b(const ItemB& it, int b, float pa[4],
   }
 }
 
-// D^T of panel kp of one matrix from its L, into sDT (all threads; a
-// block barrier before, so that no warp still reads the old one, and
-// after)
-__device__ __forceinline__ void reload_dt(TileT sDT, const float* L, int b,
-                                          int o) {
+// D^T of panel kp of one matrix from its L, into sDT, and its failed
+// pivots' mask from failp into *sFail (all threads; a block barrier
+// before, so that no warp still reads the old ones, and after)
+__device__ __forceinline__ void reload_dt(TileT sDT, unsigned* sFail,
+                                          const float* L, int b, int o,
+                                          const unsigned* failp) {
   __syncthreads();
   for (int e = threadIdx.x; e < NB * NB; e += NT) {
     const int i = e & 31, k = e >> 5;
     sDT[k][i] = __ldcg(L + (size_t)(o + i) * b + o + k);
   }
+  if (threadIdx.x == 0) *sFail = __ldcg(failp);
   __syncthreads();
 }
 
@@ -317,13 +338,14 @@ __device__ __forceinline__ void reload_dt(TileT sDT, const float* L, int b,
 template <bool ONE>
 __global__ void __launch_bounds__(NT)
 chol_linv_coop_kernel(const float* __restrict__ A_all, float* L_all,
-                      float* Linv_all, float* ok, int B_arg, int b,
-                      int C_arg) {
+                      float* Linv_all, float* ok, unsigned* fail, int B_arg,
+                      int b, int C_arg) {
   const int B = ONE ? 1 : B_arg, C = ONE ? 1 : C_arg;
   cg::grid_group grid = cg::this_grid();
   __shared__ Tile sA, sB, sDinv;
   __shared__ __align__(16) TileT sDT;
   __shared__ __align__(16) float sCol[NB];
+  __shared__ unsigned sFail;  // the failed pivots of the D^T in sDT
 
   const int tid = threadIdx.x, g = blockIdx.x, G = gridDim.x;
   const int r = tid >> 3, c0 = tid & 7;
@@ -371,7 +393,8 @@ chol_linv_coop_kernel(const float* __restrict__ A_all, float* L_all,
       sB[i][k] = k <= i ? A[(size_t)i * b + k] : 0.0f;
     }
     __syncthreads();
-    const bool okm = factor_tile(sB, sDT, sCol, L_all + mt * bb, b, 0);
+    const bool okm = factor_tile(sB, sDT, sCol, &sFail, fail + mt * npan,
+                                 L_all + mt * bb, b, 0);
     if (tid == 0) ok[mt] = okm ? 1.0f : 0.0f;
     invert_tile(sDT, sDinv, Linv_all + mt * bb, b, 0);
     dt_at = dinv_at = mt * npan;
@@ -391,10 +414,10 @@ chol_linv_coop_kernel(const float* __restrict__ A_all, float* L_all,
       float* Linv = Linv_all + mt * bb;
       if (w < T - 1) {
         if (dt_at != at) {
-          reload_dt(sDT, L, b, o);
+          reload_dt(sDT, &sFail, L, b, o, fail + at);
           dt_at = at;
         }
-        solve_rows(L, b, kp + 2 + w, o, sDT, nullptr);
+        solve_rows(L, b, kp + 2 + w, o, sDT, &sFail, nullptr);
       } else {
         const int cj = w - (T > 0 ? T - 1 : 0);
         if (dinv_at != at) {  // every reader of sDinv passed a barrier
@@ -417,16 +440,19 @@ chol_linv_coop_kernel(const float* __restrict__ A_all, float* L_all,
       // (kp+1, kp+1), and that tile's factor, the next panel's D
       float* L = L_all + mt * bb;
       const int t1 = (kp + 1) * NB;
-      if (dt_at != mt * npan + kp) reload_dt(sDT, L, b, o);
+      if (dt_at != mt * npan + kp)
+        reload_dt(sDT, &sFail, L, b, o, fail + mt * npan + kp);
       load_tile<true>(sB, L, b, t1, t1);
-      solve_rows(L, b, kp + 1, o, sDT, sA);
+      solve_rows(L, b, kp + 1, o, sDT, &sFail, sA);
       __syncthreads();
       float acc[4] = {0.f, 0.f, 0.f, 0.f};
       mm_nt(acc, sA, sA);
 #pragma unroll
       for (int u = 0; u < 4; ++u) sB[r][c0 + 8 * u] -= acc[u];
       __syncthreads();
-      if (!factor_tile(sB, sDT, sCol, L, b, t1) && tid == 0) ok[mt] = 0.0f;
+      if (!factor_tile(sB, sDT, sCol, &sFail, fail + mt * npan + kp + 1, L,
+                       b, t1) && tid == 0)
+        ok[mt] = 0.0f;
       dt_at = mt * npan + kp + 1;
     }
     grid.sync();
@@ -478,7 +504,7 @@ chol_linv_coop_kernel(const float* __restrict__ A_all, float* L_all,
     for (int mt = chain0; mt < B; mt += C) {
       const int at = mt * npan + kp + 1;
       if (dt_at != at) {
-        reload_dt(sDT, L_all + mt * bb, b, (kp + 1) * NB);
+        reload_dt(sDT, &sFail, L_all + mt * bb, b, (kp + 1) * NB, fail + at);
         dt_at = at;
       }
       invert_tile(sDT, sDinv, Linv_all + mt * bb, b, (kp + 1) * NB);
@@ -526,17 +552,18 @@ extern "C" int rpagp_chol_linv_coop_grid(int B, int b, int* G, int* C) {
   return *G >= 1 && B >= 1 ? 0 : (int)cudaErrorCooperativeLaunchTooLarge;
 }
 
-// A, L, Linv: (B, b, b) f32 contiguous on the device; ok: (B,) f32. b a
-// positive multiple of 32, G and C from rpagp_chol_linv_coop_grid (any
+// A, L, Linv: (B, b, b) f32 contiguous on the device; ok: (B,) f32; fail:
+// B * b/32 words of scratch (the failed pivots' masks). b a positive
+// multiple of 32, G and C from rpagp_chol_linv_coop_grid (any
 // 1 <= C <= min(B, G) is valid). Returns the cooperative launch's error
 // (cudaErrorCooperativeLaunchTooLarge if the G blocks cannot all be
 // resident), else cudaGetLastError().
 extern "C" int rpagp_chol_linv_coop(const float* A, float* L, float* Linv,
-                                    float* ok, int B, int b, int G, int C,
-                                    void* stream) {
+                                    float* ok, unsigned* fail, int B, int b,
+                                    int G, int C, void* stream) {
   if (C < 1 || C > B || C > G) return (int)cudaErrorInvalidValue;
-  void* args[] = {(void*)&A, (void*)&L, (void*)&Linv, (void*)&ok,
-                  (void*)&B, (void*)&b, (void*)&C};
+  void* args[] = {(void*)&A,    (void*)&L, (void*)&Linv, (void*)&ok,
+                  (void*)&fail, (void*)&B, (void*)&b,    (void*)&C};
   cudaError_t e = cudaLaunchCooperativeKernel(
       coop_kernel(B, C), dim3(G), dim3(NT), args, 0, (cudaStream_t)stream);
   if (e != cudaSuccess) {

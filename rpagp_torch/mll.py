@@ -1,7 +1,8 @@
 """Marginal log-likelihood and posterior with the JAX package's size
 dispatch (port of rpagp/mll.py): the dense Cholesky branch (n <=
-max_cholesky_size without SKI), the exact grid-solver branch and the
-BBMM branch (CG + SLQ, LOVE)."""
+max_cholesky_size without SKI), the exact grid-solver branch (every
+product SKI spec, and degree-1 SKI within its budget) and the BBMM
+branch (CG + SLQ, LOVE)."""
 
 from __future__ import annotations
 

@@ -64,7 +64,9 @@ def prepare_buffers(spec: ModelSpec, params, buffers, x_train, y_train=None):
     - a SKI spec on the grid solver: the SKI geometry and S = U^T U; with
       y_train also U^T y, U^T 1 and the anchored value cache, after which
       the MLL step does no work that scales with n. Only evaluate grid_mll
-      on this same split afterwards;
+      on this same split afterwards. A product SKI spec (degree * sub_dim
+      > 1) always takes this branch, with one geometry row per 1-D factor
+      and S of shape (J, m^F, J, m^F);
     - a SKI spec on SKI + BBMM: the SKI geometry alone (`ski_state`);
     - a spec without SKI and with precond_refresh > 1: the pivoted-Cholesky
       preconditioner at these params (`precond_cache`,
@@ -79,12 +81,12 @@ def prepare_buffers(spec: ModelSpec, params, buffers, x_train, y_train=None):
             buffers = refresh_preconditioner(spec, params, buffers, x_train)
         return buffers
     kspec = spec.kernel
-    state = grid_solve.ski.build_ski(kspec, params["kernel"],
-                                     buffers["kernel"], x_train,
-                                     kspec.grid_size)
+    state = grid_solve._build_geometry(kspec, params["kernel"],
+                                       buffers["kernel"], x_train,
+                                       kspec.grid_size)
     if not grid_solve.use_grid_solver(spec, x_train.shape[0]):
         return {**buffers, "ski_state": state}
-    S4 = grid_solve.build_interp_gram(state)
+    S4 = grid_solve._build_gram(kspec, state)
     out = {**buffers, "ski_state": state, "ski_uu": S4}
     if y_train is not None:
         uy, u1 = grid_solve.build_interp_y(kspec, state, y_train)

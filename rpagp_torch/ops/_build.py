@@ -32,7 +32,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points: name -> argtypes (all return int cudaError_t)
 _SIGNATURES = {
     "rpagp_chol_linv": [_P, _P, _P, _P, _I, _I, _P],
-    "rpagp_chol_linv_coop": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "rpagp_chol_linv_coop": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "rpagp_chol_linv_coop_grid": [_I, _I, _P, _P],
     "rpagp_interp_transpose": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "rpagp_interp_apply_sum": [_P, _P, _P, _I, _I, _I, _I, _P],

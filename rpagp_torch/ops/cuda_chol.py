@@ -19,11 +19,11 @@ for bit on every matrix.
 
 Contract (both): A symmetric, f32. L = chol(A) exactly lower-triangular,
 Linv = L^{-1}, ok = 1.0 / 0.0. On a non-positive pivot ok = 0 for that
-matrix alone, and every output is meant to stay FINITE (the
-blocked_cholesky_safe contract: a zero cotangent times a finite primal
-stays zero). At b = 512 a failed matrix can overflow to non-finite
-outputs (ROADMAP queue 1 item 2), so the factor-first ladders drop a
-factor with ok = 0 on the host before it enters a result.
+matrix alone, the pivot is taken as 1 and its column decoupled from the
+rest (0 below the diagonal), so L and Linv are the finite factor and
+inverse of the matrix with that row and column taken out: every output
+stays FINITE (the blocked_cholesky_safe contract: a zero cotangent times
+a finite primal stays zero). A matrix with ok = 1 never takes that branch.
 
 Gradient: the closed-form GEMM-only VJP of pallas_chol._chol_linv_bwd /
 _fused_bwd, as plain torch.matmul. It returns a SYMMETRIC cotangent, so
@@ -117,7 +117,11 @@ def chol_linv_cuda(A, name: str):
     if name == ONE_BLOCK:
         err = lib.rpagp_chol_linv(*args, B, bp, stream)
     else:
-        err = lib.rpagp_chol_linv_coop(*args, B, bp,
+        # each panel's failed pivots, one bit a column, from the diagonal
+        # chain to the blocks that substitute the panel's rows
+        fail = torch.empty(B * (bp // _ALIGN), dtype=torch.int32,
+                           device=A.device)
+        err = lib.rpagp_chol_linv_coop(*args, fail.data_ptr(), B, bp,
                                        *coop_grid(B, bp, A.device), stream)
     _build.check(err, f"{name} kernel")
     if name in launches:

@@ -1,6 +1,5 @@
-"""Exact grid-space (Woodbury) solver for the degree-1 SKI path
-(port of rpagp/ops/grid_solve.py; see its module docstring for the
-derivation).
+"""Exact grid-space (Woodbury) solver for the SKI path (port of
+rpagp/ops/grid_solve.py; see its module docstring for the derivation).
 
     C          = noise I_p + G^T S G,   G = blockdiag(sqrt(scale_j) L_j)
     logdet A   = (n - p) log noise + logdet C
@@ -14,6 +13,14 @@ blocks in `_chol_ladder` and the 512 diagonal leaves of the p x p factor
 in `_chol_with_fallback_eps`; K2 / K3 (ops/cuda_interp.py) are the
 interpolation passes of prepare and the posterior.
 
+Product components (degree * sub_dim > 1, ops/ski_product.py) take the
+same solver with per-component grid size M = m^F: their geometry has one
+row per 1-D factor, their interpolation is ski_product's Khatri-Rao pair
+(plain torch, in place of K2 / K3), and their ladder runs K1 on the
+(J * F, m, m) factor Toeplitz blocks, whose Kronecker products are the
+(J, M, M) factors. The dispatchers `_interp_T`, `_interp_A`,
+`_build_geometry` and `_build_gram` choose between the two.
+
 Each `jax.lax.cond` on a device flag of the JAX package is a Python `if`
 on a device bool here: `_chol_ladder` and `_chol_with_fallback_eps` read
 one flag each, so a training step makes two device->host reads when
@@ -23,8 +30,6 @@ last factor chose; `factor_diagnostics` reports them at given params.
 Posteriors: `grid_posterior` (mean, variance), `grid_posterior_cov`
 (full covariance) and `make_grid_predictor` (factor once, predict per
 batch), each exact within the SKI model.
-
-Product-SKI components are ROADMAP slice 9.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ import torch
 
 from ..models import exact_gp
 from ..models.exact_gp import ModelSpec
-from . import ski
+from . import ski, ski_product
 from .block_chol import (blocked_cholesky, blocked_cholesky_safe,
                          blocked_solve_triangular)
 from .cuda_chol import chol_linv_batched
@@ -59,24 +64,74 @@ def _host_bool(flag) -> bool:
     return bool(flag)
 
 
-def _check_degree1(kspec):
-    if any(d != 1 for d in kspec.degrees) or kspec.sub_dim != 1:
-        raise NotImplementedError(
-            "product (degree*sub_dim > 1) SKI components are ROADMAP "
-            "slice 9; only degree-1 SKI is ported")
-
-
 def use_grid_solver(spec: ModelSpec, n: int) -> bool:
-    """Does this spec/size run the exact grid solver? (degree-1 policy)"""
-    if not spec.kernel.ski:
+    """Does this spec/size run the exact grid solver? "grid" forces it,
+    "bbmm" keeps SKI + BBMM, "auto" takes it while p = J*m is at most
+    min(n/2, _P_MAX). Product SKI specs always take it: SKI + BBMM has no
+    product wiring, so solver="bbmm" raises, and past p = J*m^F > _P_MAX
+    solver="grid" warns of the O(p^3) factor while "auto" raises."""
+    kspec = spec.kernel
+    if not kspec.ski:
         return False
-    _check_degree1(spec.kernel)
+    if ski_product.is_product(kspec):
+        if spec.solver == "bbmm":
+            raise ValueError(
+                "solver='bbmm' does not support product (degree*sub_dim"
+                " > 1) SKI kernels; use solver='grid'/'auto'")
+        p = ski_product.grid_rank(kspec)
+        if p > _P_MAX:
+            if spec.solver != "grid":
+                raise ValueError(
+                    f"product-SKI grid rank p = J*m^F = {p} exceeds the "
+                    f"grid solver budget ({_P_MAX}) and the BBMM path "
+                    "has no product wiring: reduce grid_size (p scales "
+                    "as m^F) or J, or force solver='grid' to accept the "
+                    "O(p^3) factor")
+            import warnings
+
+            warnings.warn(
+                f"product-SKI grid rank p = J*m^F = {p} exceeds the "
+                f"auto-dispatch budget ({_P_MAX}); solver='grid' forces an "
+                f"O(p^3) factor (~{8 * p * p / 2**30:.1f} GiB for the p x p "
+                "Cholesky alone)", stacklevel=2)
+        return True
     if spec.solver == "bbmm":
         return False
-    p = spec.kernel.J * spec.kernel.grid_size
+    p = kspec.J * kspec.grid_size
     if spec.solver == "grid":
         return True
     return p <= min(n // 2, _P_MAX)
+
+
+def _interp_T(kspec, state, V):
+    """Grid-space interpolation transpose, (n, t) -> (J, t, M): K2 for a
+    degree-1 kernel, the Khatri-Rao rows for a product kernel."""
+    if ski_product.is_product(kspec):
+        return ski_product.interp_transpose(kspec, state, V)
+    return ski.dense_interp_transpose(state, V)
+
+
+def _interp_A(kspec, state, G):
+    """Grid-space interpolation apply, (J, t, M) -> (n, t): K3 for a
+    degree-1 kernel, the Khatri-Rao rows for a product kernel."""
+    if ski_product.is_product(kspec):
+        return ski_product.interp_apply_sum(kspec, state, G)
+    return ski.dense_interp_apply_sum(state, G)
+
+
+def _build_geometry(kspec, kp, kb, x, grid_size, z_bounds=None):
+    """ski.build_ski, or ski.build_ski_factors for a product kernel."""
+    if ski_product.is_product(kspec):
+        return ski.build_ski_factors(kspec, kp, kb, x, grid_size,
+                                     z_bounds=z_bounds)
+    return ski.build_ski(kspec, kp, kb, x, grid_size, z_bounds=z_bounds)
+
+
+def _build_gram(kspec, state):
+    """S = U^T U, (J, M, J, M), for either kind of kernel."""
+    if ski_product.is_product(kspec):
+        return ski_product.build_interp_gram(kspec, state)
+    return build_interp_gram(state)
 
 
 def build_interp_gram(state: ski.SKIState, block: int = 8192):
@@ -94,11 +149,10 @@ def build_interp_gram(state: ski.SKIState, block: int = 8192):
 
 
 def build_interp_y(kspec, state: ski.SKIState, y):
-    """(uy, u1) = (U^T y, U^T 1), each (J, m) — hyperparameter-free; one
+    """(uy, u1) = (U^T y, U^T 1), each (J, M) — hyperparameter-free; one
     transpose of the two columns (each column's sums are those of a
     transpose of it alone)."""
-    U = ski.dense_interp_transpose(state, torch.stack([y, torch.ones_like(y)],
-                                                      dim=1))
+    U = _interp_T(kspec, state, torch.stack([y, torch.ones_like(y)], dim=1))
     return U[:, 0].contiguous(), U[:, 1].contiguous()
 
 
@@ -130,7 +184,7 @@ def build_value_cache(kspec, state, S4, y, uy):
     """Per-dataset anchor for the zero-n-pass MLL value: {"q0", "a0",
     "a1", "sy", "yy"} (see the JAX package's build_value_cache)."""
     q0 = _anchor_q0(S4, uy)
-    Vq0 = ski.dense_interp_apply_sum(state, q0[:, None, :])[:, 0]
+    Vq0 = _interp_A(kspec, state, q0[:, None, :])[:, 0]
     r = y - Vq0
     return {"q0": q0, "a0": torch.dot(y, r), "a1": torch.sum(r),
             "sy": torch.sum(y), "yy": torch.dot(y, y)}
@@ -147,10 +201,10 @@ def _anchored_iq(spec: ModelSpec, params, vc, U, Gw, n):
     return lin + (val - lin).detach()
 
 
-def _resid_iq(state, yc, U, Gw):
+def _resid_iq(kspec, state, yc, U, Gw):
     """Inv-quad numerator yc^T (yc - Vw): value from the n-space residual,
     gradient from the grid-space linear form (uncached path)."""
-    Vw = ski.dense_interp_apply_sum(state, Gw.detach()[:, None, :])[:, 0]
+    Vw = _interp_A(kspec, state, Gw.detach()[:, None, :])[:, 0]
     ycd = yc.detach()
     val = torch.dot(ycd, ycd - Vw)
     lin = torch.dot(yc, yc) - torch.sum(U * Gw)
@@ -193,8 +247,10 @@ def _chol_ladder_xla(T, eps0, eye):
 def _chol_ladder(T, eps0):
     """Per-block minimal-jitter batched Cholesky of T + eps I: one K1 call
     at the base jitter; only when a block fails does the probe ladder run.
-    K1's finite primals make the discarded fast factor harmless to the
-    gradient. eps0: (J,) absolute base jitters. Returns (L, eps_used)."""
+    K1 keeps a failed block's outputs finite (its failure rule decouples a
+    failed pivot), so the discarded fast factor is harmless to the
+    gradient: a zero cotangent times a finite primal stays zero, at every
+    block size. eps0: (J,) absolute base jitters. Returns (L, eps_used)."""
     m = T.shape[-1]
     eye = torch.eye(m, dtype=T.dtype, device=T.device)
     eps0 = eps0.detach()
@@ -231,12 +287,22 @@ def _chol_with_fallback_eps(C, noise):
 
 
 def _grid_chol_G(spec: ModelSpec, kparams, state: ski.SKIState):
-    """(G, t_jitter_mult): G (J, m, m) = sqrt(scale_j) chol(T_j + eps)."""
-    T = _toeplitz_blocks(spec.kernel, kparams, state)
+    """(G, t_jitter_mult): G (J, M, M) = sqrt(scale_j) chol(T_j + eps). A
+    product component's T_j is the Kronecker product of its F factor
+    Toeplitz blocks, so the ladder runs on the (J * F, m, m) factors and
+    kron_fold assembles their Choleskys into the (M, M) factor."""
+    kspec = spec.kernel
+    if ski_product.is_product(kspec):
+        T = ski_product.toeplitz_blocks_factors(kspec, kparams, state)
+    else:
+        T = _toeplitz_blocks(kspec, kparams, state)
     # relative jitter: scales with each block's diagonal k(0)
     eps0 = spec.grid_jitter * T[:, 0, 0]
     Lt, eps_t = _chol_ladder(T, eps0)
-    scales = _component_scales(spec.kernel, kparams)
+    if ski_product.is_product(kspec):
+        F, m = ski_product.factors_per_component(kspec), state.m
+        Lt = ski_product.kron_fold(Lt.reshape(kspec.J, F, m, m))
+    scales = _component_scales(kspec, kparams)
     G = torch.sqrt(scales)[:, None, None] * Lt
     return G, eps_t / torch.clamp(eps0, min=1e-30)
 
@@ -301,7 +367,6 @@ def _Gt_apply(G, U):
 
 def grid_mll(spec: ModelSpec, params, buffers, x, y):
     """EXACT marginal log-likelihood of the SKI model (total over n)."""
-    _check_degree1(spec.kernel)
     n = x.shape[0]
     state = buffers["ski_state"]
     S4 = buffers["ski_uu"]
@@ -313,7 +378,7 @@ def grid_mll(spec: ModelSpec, params, buffers, x, y):
     G, Lc = _factor(spec, params["kernel"], state, S4, noise)
     U = _cached_U(spec, params, buffers)
     if U is None:
-        U = ski.dense_interp_transpose(state, yc[:, None])[:, 0, :]
+        U = _interp_T(spec.kernel, state, yc[:, None])[:, 0, :]
     b = _Gt_apply(G, U)
     w = torch.cholesky_solve(b[:, None], Lc)[:, 0]
     Gw = _G_apply(G, w)
@@ -321,7 +386,7 @@ def grid_mll(spec: ModelSpec, params, buffers, x, y):
     if vc is not None and "ski_uy" in buffers:
         iq = _anchored_iq(spec, params, vc, U, Gw, n) / noise
     else:
-        iq = _resid_iq(state, yc, U, Gw) / noise
+        iq = _resid_iq(spec.kernel, state, yc, U, Gw) / noise
     ld = (n - p) * torch.log(noise) + 2.0 * torch.sum(
         torch.log(torch.diagonal(Lc)))
     return -0.5 * (iq + ld + n * LOG_2PI)
@@ -334,11 +399,12 @@ def _posterior_factor(spec: ModelSpec, params, buffers, x_train, y_train,
     amplifies f32 cancellation by 1/noise)."""
     noise = exact_gp.noise_value(params)
     yc = y_train - exact_gp.mean_fn(spec, params, x_train)
-    st_train = ski.build_ski(spec.kernel, params["kernel"], buffers["kernel"],
-                             x_train, spec.kernel.grid_size, z_bounds=z_bounds)
-    S4 = build_interp_gram(st_train)
+    st_train = _build_geometry(spec.kernel, params["kernel"],
+                               buffers["kernel"], x_train,
+                               spec.kernel.grid_size, z_bounds=z_bounds)
+    S4 = _build_gram(spec.kernel, st_train)
     G, Lc = _factor(spec, params["kernel"], st_train, S4, noise)
-    U = ski.dense_interp_transpose(st_train, yc[:, None])[:, 0, :]
+    U = _interp_T(spec.kernel, st_train, yc[:, None])[:, 0, :]
     b = _Gt_apply(G, U)
     q = _G_apply(G, torch.cholesky_solve(b[:, None], Lc)[:, 0])
     return st_train, q, (G, Lc), noise
@@ -360,8 +426,10 @@ def _explained_chunk(factor, noise, Uc):
     return torch.sum(tp * tp, dim=1) - noise * torch.sum(s * s, dim=0)
 
 
-def _test_interp_rows(state_test: ski.SKIState, chunk_slice):
+def _test_interp_rows(state_test: ski.SKIState, chunk_slice, kspec=None):
     """Dense W* rows for a contiguous test chunk: (c, p)."""
+    if kspec is not None and ski_product.is_product(kspec):
+        return ski_product.test_interp_rows(kspec, state_test, chunk_slice)
     tf = state_test.tfrac[:, chunk_slice]
     W = ski._cubic_kernel(tf[:, :, None] - state_test.cells)  # (J, c, m)
     J, c, m = W.shape
@@ -372,9 +440,9 @@ def _test_mean(spec: ModelSpec, params, buffers, bounds, q, x_test):
     """(st_test, mu): x_test's geometry on the grid of `bounds` and the
     posterior mean from the cache q (K3)."""
     kspec = spec.kernel
-    st_test = ski.build_ski(kspec, params["kernel"], buffers["kernel"],
-                            x_test, kspec.grid_size, z_bounds=bounds)
-    mu = ski.dense_interp_apply_sum(st_test, q[:, None, :])[:, 0]
+    st_test = _build_geometry(kspec, params["kernel"], buffers["kernel"],
+                              x_test, kspec.grid_size, z_bounds=bounds)
+    mu = _interp_A(kspec, st_test, q[:, None, :])[:, 0]
     return st_test, mu + exact_gp.mean_fn(spec, params, x_test)
 
 
@@ -386,7 +454,7 @@ def _test_var(spec: ModelSpec, params, buffers, st_test, factor, noise,
     kd = gram_diag(spec.kernel, params["kernel"], buffers["kernel"], x_test)
     explained = torch.cat([
         _explained_chunk(factor, noise, _test_interp_rows(
-            st_test, slice(s, s + _TEST_CHUNK)))
+            st_test, slice(s, s + _TEST_CHUNK), spec.kernel))
         for s in range(0, n_test, _TEST_CHUNK)])
     var = torch.clamp(kd - explained, min=1e-10)
     return var + noise if observation_noise else var
@@ -397,7 +465,6 @@ def grid_posterior(spec: ModelSpec, params, buffers, x_train, y_train,
                    x_test, observation_noise: bool = True):
     """Posterior predictive (mean, var), exact within the SKI model, on a
     grid rebuilt over the union of train/test projection bounds."""
-    _check_degree1(spec.kernel)
     bounds = ski.union_bounds(spec.kernel, params["kernel"],
                               buffers["kernel"], x_train, x_test)
     _, q, factor, noise = _posterior_factor(spec, params, buffers, x_train,
@@ -419,7 +486,6 @@ def grid_posterior_cov(spec: ModelSpec, params, buffers, x_train, y_train,
     with (p, c) buffers only. K** is the exact Gram, so the diagonal is
     grid_posterior's variance to rounding. For modest test batches: the
     covariance is (n_test, n_test)."""
-    _check_degree1(spec.kernel)
     kspec, kp, kb = spec.kernel, params["kernel"], buffers["kernel"]
     bounds = ski.union_bounds(kspec, kp, kb, x_train, x_test)
     _, q, (G, Lc), noise = _posterior_factor(spec, params, buffers, x_train,
@@ -427,7 +493,8 @@ def grid_posterior_cov(spec: ModelSpec, params, buffers, x_train, y_train,
     st_test, mu = _test_mean(spec, params, buffers, bounds, q, x_test)
     n_test = x_test.shape[0]
     J, m, _ = G.shape
-    Ub = _test_interp_rows(st_test, slice(0, n_test)).reshape(n_test, J, m)
+    Ub = _test_interp_rows(st_test, slice(0, n_test), kspec).reshape(
+        n_test, J, m)
     tp = torch.einsum("jab,cja->cjb", G, Ub).reshape(n_test, J * m)
     s = blocked_solve_triangular(Lc, tp.T)  # (p, c)
     K_ss = gram(kspec, kp, kb, x_test, x_test)
@@ -447,7 +514,6 @@ def make_grid_predictor(spec: ModelSpec, params, buffers, x_train, y_train,
     costs K3 (the mean) and one (c, p) product and solve (the variance).
     Test points beyond the margin get zero taps and so revert to the
     prior mean, with the prior variance."""
-    _check_degree1(spec.kernel)
     bounds = ski.margin_bounds(spec.kernel, params["kernel"],
                                buffers["kernel"], x_train)
     _, q, factor, noise = _posterior_factor(spec, params, buffers, x_train,

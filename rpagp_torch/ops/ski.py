@@ -12,7 +12,9 @@ package's custom_vjp pair. T_j V is a 2m circulant embedding and batched
 real FFTs (torch.fft), differentiated by autograd. `ski_mvm` chains the
 three: K2, the Toeplitz product, K3.
 
-The sorted interp plan (KernelSpec.interp = "sorted") is ROADMAP queue 1.
+Product components (degree * sub_dim > 1) take `build_ski_factors`: one
+geometry row per 1-D factor, which ops/ski_product.py combines. The
+sorted interp plan (KernelSpec.interp = "sorted") is ROADMAP queue 1.
 """
 
 from __future__ import annotations
@@ -54,9 +56,17 @@ def _tap_geometry(tfrac, m: int):
 
 
 def project(spec: KernelSpec, kparams, kbuffers, x):
-    """Raw projected coordinates z = (x P)^T — (J, n); not lengthscale-
+    """Raw projected coordinates z = (x P)^T, one row per projection column
+    ((J, n) for degree-1, (Jf, n) for a product kernel); not lengthscale-
     scaled, so the grid is hyperparameter-free."""
     return (x @ _get_proj(kparams, kbuffers)).T
+
+
+def _check_learn_proj(spec: KernelSpec):
+    if spec.learn_proj:
+        raise ValueError("learn_proj=True is incompatible with ski=True: "
+                         "the SKI interpolation geometry is fixed at "
+                         "prepare time, so projection gradients are zero")
 
 
 def build_ski(spec: KernelSpec, kparams, kbuffers, x, grid_size: int,
@@ -65,22 +75,32 @@ def build_ski(spec: KernelSpec, kparams, kbuffers, x, grid_size: int,
     (lo (J,), hi (J,)) for a grid covering more than x."""
     if (not spec.is_projection or any(d != 1 for d in spec.degrees)
             or spec.sub_dim != 1):
-        raise NotImplementedError(
-            "SKI here supports degree-1, sub_dim-1 projection kernels only "
-            "(product SKI is ROADMAP slice 9)")
-    if spec.learn_proj:
-        raise ValueError("learn_proj=True is incompatible with ski=True: "
-                         "the SKI interpolation geometry is fixed at "
-                         "prepare time, so projection gradients are zero")
+        raise ValueError("SKI supports degree-1, sub_dim-1 projection "
+                         "kernels only")
+    _check_learn_proj(spec)
     if spec.interp != "dense":
         raise NotImplementedError("the sorted interp plan is ROADMAP queue 1")
     z = project(spec, kparams, kbuffers, x)
     return _geometry_from_z(z, int(grid_size), z_bounds)
 
 
+def build_ski_factors(spec: KernelSpec, kparams, kbuffers, x, grid_size: int,
+                      z_bounds=None):
+    """Per-factor SKI geometry of a product (degree * sub_dim > 1) kernel:
+    each 1-D projection column is a row of its own, so the state has
+    Jf = sum(degrees) * sub_dim rows (dense plan only). z_bounds: optional
+    (lo (Jf,), hi (Jf,))."""
+    if not spec.is_projection:
+        raise ValueError("build_ski_factors needs a projection kernel")
+    _check_learn_proj(spec)
+    z = project(spec, kparams, kbuffers, x)  # (Jf, n)
+    return _geometry_from_z(z, int(grid_size), z_bounds)
+
+
 def union_bounds(spec: KernelSpec, kparams, kbuffers, x1, x2):
-    """(lo, hi) (J,) over the projections of x1 and x2: one grid for both,
-    as a cross MVM needs."""
+    """(lo, hi) over the projections of x1 and x2, one per geometry row
+    ((J,), or (Jf,) for a product kernel): one grid for both, as a cross
+    MVM and a posterior need."""
     z1 = project(spec, kparams, kbuffers, x1)
     z2 = project(spec, kparams, kbuffers, x2)
     return (torch.minimum(torch.amin(z1, dim=1), torch.amin(z2, dim=1)),
@@ -93,8 +113,9 @@ GRID_MARGIN = 0.5
 
 
 def margin_bounds(spec: KernelSpec, kparams, kbuffers, x):
-    """(lo, hi) (J,): x's projection range extended by GRID_MARGIN x its
-    span on each side (a cached predictor's grid)."""
+    """(lo, hi), one per geometry row ((J,), or (Jf,) for a product
+    kernel): x's projection range extended by GRID_MARGIN x its span on
+    each side (a cached predictor's grid)."""
     z = project(spec, kparams, kbuffers, x)
     lo, hi = torch.amin(z, dim=1), torch.amax(z, dim=1)
     span = hi - lo

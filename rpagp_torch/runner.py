@@ -1,6 +1,7 @@
 """Experiment runner CLI: datasets x CV splits -> CSV of RMSE/NLL/time
 (port of rpagp/runner.py, single device: the dense Cholesky path, the
-exact grid-solver path and the BBMM path).
+exact grid-solver path (degree-1 and product SKI), the BBMM path and
+SVGP). Every spec in specs/ runs.
 
 Usage:
   python -m rpagp_torch.runner --model_spec specs/rp_poly_j20.json \
@@ -8,6 +9,10 @@ Usage:
   python -m rpagp_torch.runner --model_spec specs/rp_ski_houseelectric_j20.json \
       --datasets houseelectric --splits 10 --max_splits 1
   python -m rpagp_torch.runner --model_spec specs/rp_bbmm_elevators.json \
+      --datasets elevators --splits 10 --max_splits 1
+  python -m rpagp_torch.runner --model_spec specs/rp_ski_d2_j6.json \
+      --datasets protein --splits 10 --max_splits 1
+  python -m rpagp_torch.runner --model_spec specs/svgp_m512.json \
       --datasets elevators --splits 10 --max_splits 1
 """
 
@@ -55,10 +60,13 @@ def run_split(exp: ExperimentSpec, split, seed: int = 0, device="cuda",
     torch.Generator seeded with `seed`, so it does not depend on the
     device; the BBMM path's probes from a generator on the device seeded
     with seed + 1. timings, when given, receives prepare/train/posterior
-    seconds (each ends in a device synchronize)."""
+    seconds (each ends in a device synchronize). An SVGP spec
+    (model_family "svgp") takes _run_split_svgp."""
     device = torch.device(device)
+    if exp.model_family == "svgp":
+        return _run_split_svgp(exp, split, seed, device, timings)
     if exp.model_family != "exact_gp":
-        raise NotImplementedError("SVGP is ROADMAP slice 11")
+        raise ValueError(f"unknown model family {exp.model_family!r}")
     spec = exp.model
     x = torch.as_tensor(split.train_x, device=device)
     y = torch.as_tensor(split.train_y, device=device)
@@ -129,10 +137,55 @@ def run_split(exp: ExperimentSpec, split, seed: int = 0, device="cuda",
     }
 
 
+def _run_split_svgp(exp: ExperimentSpec, split, seed, device, timings):
+    """SVGP: minibatch ELBO training, then the variational predictive. The
+    inducing subset is drawn from a CPU generator seeded with `seed`, the
+    epochs' shuffles from one on the device seeded with seed + 1;
+    max_iters // 10 epochs (at least 1), the spec's batch size and lr, and
+    mll the last epoch's -loss, as the JAX package's runner reports."""
+    from .models import svgp
+
+    spec = exp.model
+    x = torch.as_tensor(split.train_x, device=device)
+    y = torch.as_tensor(split.train_y, device=device)
+    xt = torch.as_tensor(split.test_x, device=device)
+    yt = torch.as_tensor(split.test_y, device=device)
+    tP = time.perf_counter()
+    params, buffers = svgp.init_svgp_params(
+        spec, x, num_inducing=min(exp.num_inducing, x.shape[0]),
+        generator=torch.Generator().manual_seed(seed), device=device)
+    _sync(device)
+    t_prepare = time.perf_counter() - tP
+    t0 = time.perf_counter()
+    res = svgp.train_svgp(
+        spec, params, buffers, x, y,
+        generator=torch.Generator(device=device).manual_seed(seed + 1),
+        batch_size=exp.batch_size,
+        num_epochs=max(1, exp.train.max_iters // 10), lr=exp.train.lr)
+    _sync(device)
+    train_time = time.perf_counter() - t0
+    tQ = time.perf_counter()
+    mu, var = svgp.svgp_predict(spec, res.params, buffers, xt)
+    rmse = float(torch.sqrt(torch.mean((mu - yt) ** 2)))
+    nll = float(gaussian_nll(yt, mu, var))
+    if timings is not None:
+        timings.update(prepare_s=t_prepare, train_s=train_time,
+                       posterior_s=time.perf_counter() - tQ)
+    return {
+        "rmse": rmse,
+        "nll": nll,
+        "mll": -res.losses[-1] if res.losses else float("nan"),
+        "train_time_s": train_time,
+        "iterations": len(res.losses),
+        "n_train": int(x.shape[0]),
+        "n_test": int(xt.shape[0]),
+    }
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         description="RPA-GP experiment runner (PyTorch port: dense "
-                    "Cholesky, exact grid and BBMM paths)")
+                    "Cholesky, exact grid, BBMM and SVGP paths)")
     ap.add_argument("--model_spec", required=True, help="path to JSON model spec")
     ap.add_argument("--datasets", nargs="+", required=True)
     ap.add_argument("--splits", type=int, default=10, help="k for k-fold CV")

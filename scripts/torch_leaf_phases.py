@@ -70,10 +70,10 @@ PATCH = [
     ("#pragma unroll\n    for (int k = 0; k < NB; ++k) sDT[k][i] = a[k];\n",
      "    CLK(o / NB, 2)\n#pragma unroll\n"
      "    for (int k = 0; k < NB; ++k) sDT[k][i] = a[k];\n"),
-    ("                           a[4 * m + 3]);\n  }\n  __syncthreads();\n"
-     "  return all;\n}",
-     "                           a[4 * m + 3]);\n  }\n  __syncthreads();\n"
-     "  CLK(o / NB, 4)\n  return all;\n}"),
+    ("      *failp = fail;\n    }\n  }\n  __syncthreads();\n"
+     "  return fail == 0u;\n}",
+     "      *failp = fail;\n    }\n  }\n  __syncthreads();\n"
+     "  CLK(o / NB, 4)\n  return fail == 0u;\n}"),
     ("      Linv[(size_t)(o + r) * b + o + c] = y[r];\n    }\n  }\n",
      "      Linv[(size_t)(o + r) * b + o + c] = y[r];\n    }\n  }\n"
      "  CLK(o / NB, 3)\n"),
@@ -89,8 +89,10 @@ PATCH = [
      "    if (T == 0) {\n      STAMP_END(1 + 2 * kp)\n      break;\n    }\n"),
     ("      const int t1 = (kp + 1) * NB;\n",
      "      const int t1 = (kp + 1) * NB;\n      CLK(kp + 1, 5)\n"),
-    ("      solve_rows(L, b, kp + 1, o, sDT, sA);\n      __syncthreads();\n",
-     "      solve_rows(L, b, kp + 1, o, sDT, sA);\n      __syncthreads();\n"
+    ("      solve_rows(L, b, kp + 1, o, sDT, &sFail, sA);\n"
+     "      __syncthreads();\n",
+     "      solve_rows(L, b, kp + 1, o, sDT, &sFail, sA);\n"
+     "      __syncthreads();\n"
      "      CLK(kp + 1, 7)\n"),
     ("      for (int u = 0; u < 4; ++u) sB[r][c0 + 8 * u] -= acc[u];\n"
      "      __syncthreads();\n",
@@ -129,7 +131,7 @@ def build():
                     "-I", CSRC, "-o", so, cu], check=True)
     lib = ctypes.CDLL(so)
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.rpagp_chol_linv_coop.argtypes = [P, P, P, P, I, I, I, I, P]
+    lib.rpagp_chol_linv_coop.argtypes = [P, P, P, P, P, I, I, I, I, P]
     lib.rpagp_chol_linv_coop_grid.argtypes = [I, I, P, P]
     lib.leaf_stamps.argtypes = [P, P, P]
     return lib
@@ -160,6 +162,7 @@ def main():
     A = (X @ X.mT / b + 0.5 * torch.eye(b)).to(dev).contiguous()
     L, Linv, ok = (torch.empty_like(A), torch.empty_like(A),
                    torch.empty(B, device=dev))
+    fail = torch.empty(B * (b // 32), dtype=torch.int32, device=dev)
     G, C = ctypes.c_int(0), ctypes.c_int(0)
     _build.check(lib.rpagp_chol_linv_coop_grid(B, b, ctypes.addressof(G),
                                                ctypes.addressof(C)),
@@ -170,8 +173,8 @@ def main():
 
     def launch():
         _build.check(lib.rpagp_chol_linv_coop(
-            A.data_ptr(), L.data_ptr(), Linv.data_ptr(), ok.data_ptr(), B, b,
-            G.value, C.value, _build.stream_ptr(dev)),
+            A.data_ptr(), L.data_ptr(), Linv.data_ptr(), ok.data_ptr(),
+            fail.data_ptr(), B, b, G.value, C.value, _build.stream_ptr(dev)),
             "instrumented K1 kernel")
 
     for _ in range(5):  # the last run's stamps are read

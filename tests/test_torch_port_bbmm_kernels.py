@@ -274,6 +274,20 @@ ski_exp = dataclasses.replace(exp, model=ski_model,
                                                         max_iters=3))
 m = runner.run_split(ski_exp, split, seed=0, device="cpu")
 assert m["rmse"] == m["rmse"] and m["nll"] == m["nll"], m
+# product SKI (the grid solver, ops/ski_product.py) and SVGP (models/svgp.py)
+from rpagp_torch.models import svgp
+from rpagp_torch.ops import ski_product
+prod = dataclasses.replace(exp, model=dataclasses.replace(
+    model, kernel=KernelSpec.polynomial(J=2, d=2, ski=True, grid_size=8)),
+    train=dataclasses.replace(exp.train, max_iters=2))
+assert ski_product.is_product(prod.model.kernel)
+m = runner.run_split(prod, split, seed=0, device="cpu")
+assert m["rmse"] == m["rmse"] and m["nll"] == m["nll"], m
+sv = load_spec(os.path.join("specs", "svgp_m512.json"))
+sv = dataclasses.replace(sv, num_inducing=16, batch_size=64,
+                         train=dataclasses.replace(sv.train, max_iters=20))
+m = runner.run_split(sv, split, seed=0, device="cpu")
+assert m["iterations"] == 2 and m["rmse"] == m["rmse"], m
 root = os.path.abspath("rpagp") + os.sep
 bad = sorted(k for k, mod in list(sys.modules.items())
              if k == "jax" or k.startswith("jax.") or k == "rpagp"
@@ -284,9 +298,10 @@ print("BAD", bad)
 
 
 def test_port_imports_nothing_of_jax():
-    """A fresh process imports rpagp_torch and runs a small CPU BBMM split
-    and a small SKI + BBMM split; afterwards no jax module, no rpagp module and no module loaded from a
-    file under rpagp/ is in sys.modules."""
+    """A fresh process imports rpagp_torch and runs small CPU splits on the
+    BBMM, SKI + BBMM, product SKI and SVGP paths; afterwards no jax module,
+    no rpagp module and no module loaded from a file under rpagp/ is in
+    sys.modules."""
     proc = subprocess.run([sys.executable, "-c", _NO_JAX_SCRIPT], cwd=ROOT,
                           capture_output=True, text=True, timeout=300,
                           env={**os.environ, "OMP_NUM_THREADS": "2"})

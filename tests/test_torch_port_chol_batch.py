@@ -25,7 +25,10 @@ import pytest
 import torch
 
 from rpagp.ops import pallas_chol
-from test_torch_port_chol_leaf import NB, _factor_diag, _phase_items, _rel, _spd
+from test_torch_port_chol_leaf import (NB, _factor_diag,
+                                       _holds_failure_contract, _phase_items,
+                                       _rel, _sml_ladder_blocks,
+                                       _solve_panel_rows, _spd)
 
 torch.set_num_threads(2)
 
@@ -63,23 +66,26 @@ def _deal_batch(B, phase, G, C):
     return blocks
 
 
-def _batch_schedule_model(T, G, C):
+def _batch_schedule_model(T, G, C, decouple=True):
     """(L, Linv, ok) of a (B, b, b) float32 tensor, b a multiple of 32, by
     the cooperative kernel's schedule on G blocks with C chain blocks.
     Every item of a phase reads a snapshot taken at the phase's start
     (what the grid barrier guarantees, and no more), and no tile is
-    written twice in a phase."""
+    written twice in a phase. Each (matrix, panel)'s failed pivots go from
+    its factor to the items that substitute its rows, which give them 0
+    (decouple=False: the rule before the repair)."""
     B, b = T.shape[0], T.shape[-1]
     L, Linv = torch.tril(T).clone(), torch.zeros_like(T)
     ok = [True] * B
+    fails = {}
 
     def t(M, mt, i, j):
         return M[mt, i * NB:(i + 1) * NB, j * NB:(j + 1) * NB]
 
     def factor(mt, k, S):
-        D, okk = _factor_diag(S)
+        D, fails[mt, k] = _factor_diag(S)
         t(L, mt, k, k)[:] = D
-        ok[mt] = ok[mt] and okk
+        ok[mt] = ok[mt] and not bool(fails[mt, k].any())
 
     def invert(mt, k, D):
         eye = torch.eye(NB, dtype=D.dtype)
@@ -96,9 +102,9 @@ def _batch_schedule_model(T, G, C):
             for items in _deal_batch(B, phase, G, C):
                 for mt, (kind, i, *j) in items:
                     if kind in ("row", "look"):
-                        P = torch.linalg.solve_triangular(
-                            t(sL, mt, kp, kp), t(sL, mt, i, kp).T,
-                            upper=False).T
+                        P = _solve_panel_rows(t(sL, mt, kp, kp),
+                                              t(sL, mt, i, kp),
+                                              fails[mt, kp], decouple)
                         t(L, mt, i, kp)[:] = P
                         written.append((mt, "L", i, kp))
                         if kind == "look":
@@ -177,6 +183,33 @@ def test_batch_model_indefinite_matrix(bad):
     keep = [mt for mt in range(3) if mt != bad]
     assert torch.equal(L[keep], L0[keep])
     assert torch.equal(Linv[keep], Linv0[keep])
+
+
+def test_batch_model_on_failing_ladder_blocks():
+    """Three of the sml SKI model's (512, 512) Toeplitz blocks at the base
+    jitter, where every block fails a pivot, on the launch an H100 gives
+    B = 3 at b = 512 (three chain blocks): ok = 0 for each, as the fused
+    Pallas kernel says (interpret mode), and the repaired failure contract
+    holds on each (finite outputs, the factor up to the first failing
+    pivot, the factor of the decoupled matrix, Linv its inverse). Without
+    the repair, the panel rows keep W's residual in a failed pivot's
+    column, the trailing update subtracts a column the diagonal tile never
+    eliminated, and the outputs overflow: the fault both CUDA kernels had
+    at (20, 512, 512)."""
+    T = torch.from_numpy(_sml_ladder_blocks((0, 7, 13)))
+    G, C = _grid(3, 512, 132)
+    assert C == 3
+    L, Linv, ok = _batch_schedule_model(T, G, C)
+    okj = np.asarray(pallas_chol.chol_linv_batched_fused(jnp.asarray(T.numpy()),
+                                                        True)[2])
+    assert ok.tolist() == [0.0] * 3 and okj.tolist() == [0.0] * 3
+    for mt in range(3):
+        _holds_failure_contract(T[mt], L[mt], Linv[mt])
+    L0, Linv0, ok0 = _batch_schedule_model(T, G, C, decouple=False)
+    assert ok0.tolist() == [0.0] * 3
+    for mt in range(3):
+        assert not bool(torch.isfinite(L0[mt]).all()
+                        and torch.isfinite(Linv0[mt]).all())
 
 
 @pytest.mark.parametrize("B,b,gmax", [(1, 512, 132), (3, 96, 132),

@@ -88,11 +88,12 @@ def _max_blocks(b):
 
 
 def _factor_diag(S):
-    """(D, ok) of a diagonal 32x32 tile, column by column, with the
-    unit-column contract on a pivot d <= 0 (or NaN)."""
+    """(D, fail) of a diagonal 32x32 tile, column by column, with the
+    unit-column contract on a pivot d <= 0 (or NaN): fail (32,) bool marks
+    the failed pivots."""
     S = S.clone()
     D = torch.zeros_like(S)
-    ok = True
+    fail = torch.zeros(NB, dtype=torch.bool)
     for j in range(NB):
         d = S[j, j]
         col = torch.zeros(NB, dtype=S.dtype)
@@ -100,27 +101,42 @@ def _factor_diag(S):
             col[j:] = S[j:, j] * (1.0 / torch.sqrt(d))
         else:
             col[j] = 1.0
-            ok = False
+            fail[j] = True
         S[j + 1:, j + 1:] -= torch.outer(col[j + 1:], col[j + 1:])
         D[:, j] = col
-    return D, ok
+    return D, fail
 
 
-def _leaf_schedule_model(A, G):
+def _solve_panel_rows(D, W, fail, decouple=True):
+    """W D^{-T} (the rows of a row tile against the panel's diagonal tile),
+    with 0 in the failed pivots' columns: the kernels' rule, which
+    decouples a failed pivot's column from the panel rows as the unit
+    column decouples it from the tile's own rows. decouple=False leaves
+    W's residual there (the rule before the repair)."""
+    P = torch.linalg.solve_triangular(D, W.T, upper=False).T
+    if decouple:
+        P[:, fail] = 0.0
+    return P
+
+
+def _leaf_schedule_model(A, G, decouple=True):
     """(L, Linv, ok) of one (b, b) float32 tensor, b a multiple of 32, by
     the leaf kernel's schedule on G blocks. Every item of a phase reads a
     snapshot taken at the phase's start (what the grid barrier
-    guarantees, and no more), and no tile is written twice in a phase."""
+    guarantees, and no more), and no tile is written twice in a phase.
+    A panel's failed pivots go from its factor to the items that
+    substitute its rows (the kernel's `fail` masks)."""
     b = A.shape[0]
     L, Linv = torch.tril(A).clone(), torch.zeros_like(A)
+    fails = {}
 
     def t(M, i, j):
         return M[i * NB:(i + 1) * NB, j * NB:(j + 1) * NB]
 
     def factor(k, S):  # D of S into the diagonal tile k of L
-        D, okk = _factor_diag(S)
+        D, fails[k] = _factor_diag(S)
         t(L, k, k)[:] = D
-        return okk
+        return not bool(fails[k].any())
 
     def invert(k, D):  # D^{-1} into the diagonal tile k of Linv
         eye = torch.eye(NB, dtype=D.dtype)
@@ -135,8 +151,8 @@ def _leaf_schedule_model(A, G):
             for items in _deal(phase, G):
                 for kind, i, *j in items:
                     if kind in ("row", "look"):  # W D^{-T}, by substitution
-                        P = torch.linalg.solve_triangular(
-                            t(sL, kp, kp), t(sL, i, kp).T, upper=False).T
+                        P = _solve_panel_rows(t(sL, kp, kp), t(sL, i, kp),
+                                              fails[kp], decouple)
                         t(L, i, kp)[:] = P
                         written.append(("L", i, kp))
                         if kind == "look":
@@ -159,6 +175,74 @@ def _leaf_schedule_model(A, G):
                         written.append(("Linv", i, j[0]))
             assert len(set(written)) == len(written)
     return L, Linv, ok
+
+
+@functools.lru_cache(maxsize=None)
+def _sml_ladder_blocks(idx):
+    """Blocks idx of the (20, 512, 512) Toeplitz batch that the exact grid
+    solver's ladder factors first for rp_poly_j20_ski (J = 20 degree-1 RBF,
+    m = 512) on synthetic sml split 0, at the port's initial params
+    (projection seed 0) and the base jitter: every block fails a pivot
+    there (they are numerically rank ~70), so they hold K1's failure rule
+    at b = 512. numpy float32, (len(idx), 512, 512)."""
+    import dataclasses
+    import os
+
+    from rpagp_torch.models import exact_gp
+    from rpagp_torch.ops import grid_solve, ski
+    from rpagp_torch.utils import datasets
+    from rpagp_torch.utils.config import load_spec
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = load_spec(os.path.join(root, "specs", "rp_poly_j20_ski.json")).model
+    spec = dataclasses.replace(spec, solver="grid")
+    split = next(datasets.kfold_splits(datasets.load_dataset("sml"), k=10,
+                                       seed=0, equal_train=True))
+    x = torch.as_tensor(split.train_x)
+    params, buffers = exact_gp.init_model(
+        spec, x.shape[1], generator=torch.Generator().manual_seed(0),
+        device="cpu")
+    state = ski.build_ski(spec.kernel, params["kernel"], buffers["kernel"], x,
+                          spec.kernel.grid_size)
+    T = grid_solve._toeplitz_blocks(spec.kernel, params["kernel"], state)
+    T = T[list(idx)]
+    eye = torch.eye(T.shape[-1])
+    return (T + (spec.grid_jitter * T[:, 0, 0])[:, None, None] * eye).numpy()
+
+
+def _failed_columns(L):
+    """The columns of a factor that the failure rule decoupled: a unit
+    diagonal and exact zeros below it."""
+    below = torch.tril(L, -1)
+    return [j for j in range(L.shape[0])
+            if float(L[j, j]) == 1.0 and float(below[:, j].abs().max()) == 0.0]
+
+
+def _holds_failure_contract(A, L, Linv):
+    """The repaired failure contract on one failed (b, b) matrix, to the
+    backward-error bar b * eps (f32): every output finite; the factor of A's
+    leading block up to the first failing pivot s (L L^T = A[:s, :s]);
+    L on the other rows and columns N is the Cholesky factor of A[N, N]
+    (each failed pivot's row and column taken out); Linv = L^{-1}.
+    Returns s. (An f32 factor of these blocks sits ~kappa(A) eps ~ 1e-3
+    from the exact one, so the bar is on the residuals, as for the
+    plain version itself.)"""
+    b = A.shape[0]
+    assert bool(torch.isfinite(L).all() and torch.isfinite(Linv).all())
+    Ld, Ad, eye = L.double(), A.double(), torch.eye(b, dtype=torch.float64)
+    F = _failed_columns(L)
+    s = F[0]
+    lead = Ld[:s, :s] @ Ld[:s, :s].T - Ad[:s, :s]
+    assert float(torch.linalg.norm(lead) / torch.linalg.norm(Ad[:s, :s])) \
+        <= b * 2.0**-24
+    N = torch.tensor([j for j in range(b) if j not in set(F)])
+    LN, AN = Ld[N][:, N], Ad[N][:, N]
+    assert float(torch.linalg.norm(LN @ LN.T - AN) / torch.linalg.norm(AN)) \
+        <= b * 2.0**-24
+    res = torch.linalg.norm(Ld @ Linv.double() - eye)
+    assert float(res / (torch.linalg.norm(Ld) * torch.linalg.norm(
+        Linv.double()))) <= b * 2.0**-24
+    return s
 
 
 @functools.lru_cache(maxsize=None)
@@ -219,6 +303,23 @@ def test_leaf_model_indefinite(panel):
     assert float(okp[0]) == 1.0
     assert _rel(L[:s, :s], Lp[0]) <= 1e-5
     assert _rel(Linv[:s, :s], Linvp[0]) <= 1e-5
+
+
+def test_leaf_model_on_a_failing_ladder_block():
+    """b = 512 on 132 blocks, on a Toeplitz block of the sml SKI model that
+    fails at the base jitter: ok = 0 as the Pallas kernel says (interpret
+    mode), and the repaired failure contract holds (every output finite,
+    the factor of the decoupled matrix, Linv its inverse). Without the
+    repair the same schedule overflows."""
+    A = _sml_ladder_blocks((7,))[0]
+    L, Linv, ok = _leaf_schedule_model(torch.from_numpy(A), 132)
+    okj = float(pallas_chol.chol_linv(jnp.asarray(A), True)[2])
+    assert not ok and okj == 0.0
+    _holds_failure_contract(torch.from_numpy(A), L, Linv)
+    L0, Linv0, ok0 = _leaf_schedule_model(torch.from_numpy(A), 132,
+                                          decouple=False)
+    assert not ok0
+    assert not bool(torch.isfinite(L0).all() and torch.isfinite(Linv0).all())
 
 
 @pytest.mark.parametrize("b,G", [(512, 132), (512, 1), (256, 7), (128, 120),

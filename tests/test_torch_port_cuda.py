@@ -133,6 +133,70 @@ def test_chol_linv_batch_on_the_ladder_blocks(cuda_device):
         assert _bit_equal(coop, one), f"jitter x{mult}"
 
 
+def _sml_ski_ladder_blocks(device):
+    """The (20, 512, 512) Toeplitz blocks that the exact grid solver's
+    ladder factors for rp_poly_j20_ski (J = 20 degree-1 RBF, m = 512) on
+    synthetic sml split 0 at the initial params (projection seed 0), at
+    the base jitter, where every block fails a pivot."""
+    import dataclasses
+    import os
+
+    from rpagp_torch.models import exact_gp
+    from rpagp_torch.ops import grid_solve, ski
+    from rpagp_torch.utils import datasets
+    from rpagp_torch.utils.config import load_spec
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = load_spec(os.path.join(root, "specs", "rp_poly_j20_ski.json")).model
+    spec = dataclasses.replace(spec, solver="grid")
+    split = next(datasets.kfold_splits(datasets.load_dataset("sml"), k=10,
+                                       seed=0, equal_train=True))
+    x = torch.as_tensor(split.train_x, device=device)
+    params, buffers = exact_gp.init_model(
+        spec, x.shape[1], generator=torch.Generator().manual_seed(0),
+        device=device)
+    state = ski.build_ski(spec.kernel, params["kernel"], buffers["kernel"], x,
+                          spec.kernel.grid_size)
+    T = grid_solve._toeplitz_blocks(spec.kernel, params["kernel"], state)
+    eye = torch.eye(T.shape[-1], device=device)
+    return (T + (spec.grid_jitter * T[:, 0, 0])[:, None, None] * eye)
+
+
+@pytest.mark.cuda
+def test_chol_linv_batch_failing_blocks_stay_finite(cuda_device):
+    """The sml SKI model's (20, 512, 512) ladder blocks at the base jitter:
+    every block fails (ok = 0, as cuSOLVER's cholesky_ex says), and both
+    kernels keep every output finite (a failed pivot's column is decoupled
+    from the panel rows too), bit for bit alike; L Linv = I to the
+    backward-error bar b * eps."""
+    T = _sml_ski_ladder_blocks(cuda_device).contiguous()
+    assert T.shape == (20, 512, 512)
+    (L, Linv, ok), one = _coop_and_one_block(T)
+    okp = cuda_chol.chol_linv_plain(T)[2]
+    assert ok.tolist() == [0.0] * 20 and torch.equal(ok, okp)
+    assert bool(torch.isfinite(L).all() and torch.isfinite(Linv).all())
+    assert _bit_equal((L, Linv, ok), one)
+    Ld, Linvd = L.double(), Linv.double()
+    eye = torch.eye(512, dtype=torch.float64, device=cuda_device)
+    res = torch.linalg.norm(Ld @ Linvd - eye, dim=(1, 2))
+    scale = torch.linalg.norm(Ld, dim=(1, 2)) * torch.linalg.norm(
+        Linvd, dim=(1, 2))
+    assert float(torch.max(res / scale)) <= 512 * 2.0**-24
+
+
+@pytest.mark.cuda
+def test_chol_linv_leaf_failing_block_stays_finite(cuda_device):
+    """One of those blocks through the leaf's entry point: finite, ok = 0,
+    bit for bit the one-block kernel's and the batch launch's."""
+    T = _sml_ski_ladder_blocks(cuda_device)[7:8].contiguous()
+    (L, Linv, ok), one = _leaf(T[0])
+    assert ok.tolist() == [0.0]
+    assert bool(torch.isfinite(L).all() and torch.isfinite(Linv).all())
+    assert _bit_equal((L, Linv, ok), one)
+    assert _bit_equal((L, Linv, ok),
+                      cuda_chol.chol_linv_cuda(T, "chol_linv_batched"))
+
+
 @pytest.mark.cuda
 def test_chol_linv_batch_indefinite_block_leaves_the_others(cuda_device):
     """Block 3 of the ladder-shaped batch indefinite: ok = 0 for it alone,
@@ -228,9 +292,10 @@ def test_chol_linv_leaf_refused_launch_raises(cuda_device):
 
     A = torch.eye(64, device=cuda_device)
     L, Linv, ok = (torch.empty_like(A) for _ in range(3))
+    fail = torch.empty(2, dtype=torch.int32, device=cuda_device)
     err = _build.lib().rpagp_chol_linv_coop(
-        A.data_ptr(), L.data_ptr(), Linv.data_ptr(), ok.data_ptr(), 1, 64,
-        1 << 20, 1, _build.stream_ptr(A.device))
+        A.data_ptr(), L.data_ptr(), Linv.data_ptr(), ok.data_ptr(),
+        fail.data_ptr(), 1, 64, 1 << 20, 1, _build.stream_ptr(A.device))
     with pytest.raises(RuntimeError,
                        match="cudaErrorCooperativeLaunchTooLarge"):
         _build.check(err, "chol_linv kernel")
@@ -444,6 +509,7 @@ def test_build_interp_y_is_one_launch(cuda_device):
     """Grid prepare's U^T y and U^T 1 come from one K2 launch at t = 2,
     bit for bit what two launches at t = 1 give."""
     from rpagp_torch.ops import grid_solve, ski
+    from rpagp_torch.ops.kernels import KernelSpec
 
     tf, V, _ = _interp_case(20, 50000, 256, 1, "uniform", seed=3,
                             dev=cuda_device)
@@ -451,8 +517,9 @@ def test_build_interp_y_is_one_launch(cuda_device):
     state = ski.SKIState(grid_lo=None, h=None,
                          cells=torch.arange(256.0, device=cuda_device),
                          tfrac=tf)
+    kspec = KernelSpec.polynomial(J=20, d=1, ski=True, grid_size=256)
     before = cuda_interp.launches["interp_transpose"]
-    uy, u1 = grid_solve.build_interp_y(None, state, y)
+    uy, u1 = grid_solve.build_interp_y(kspec, state, y)
     assert cuda_interp.launches["interp_transpose"] - before == 1
     one_y = cuda_interp.interp_transpose_cuda(tf, y[:, None], 256)[:, 0]
     one_1 = cuda_interp.interp_transpose_cuda(
