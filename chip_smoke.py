@@ -30,7 +30,14 @@ ported path through rpagp_torch.runner.run_split at full size:
   p = J m^F = 1536; K1's (12, 16, 16) factor ladder and the p x p
   factor's leaves; its CUDA MLL against the CPU one); SVGP, svgp_m512 on
   elevators (its CUDA ELBO against the CPU one, all 50 epochs, no host
-  read within an epoch).
+  read within an epoch);
+- phase 11, the single-card surface beside the kernels: the sorted SKI
+  plan (plain torch) at the flagship's full size against K2 / K3 and a
+  float64 run of itself, and on rp_poly_j20_ski's SKI + BBMM step;
+  train_with_checkpointing and its resume on rp_bbmm_elevators; the
+  runner's --profile (a trace holding K1's kernel); the step-0 stall
+  warning and the trainer's host reads. Each of its lines ends with the
+  card's name and power limit.
 
 Each phase prints its seconds.
 
@@ -144,10 +151,7 @@ def check(cond, what):
 def phase0_env():
     import torch
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else ""
+    card = _card_line()
     print(card, flush=True)
     import rpagp_torch  # noqa: F401  (sets the f32 matmul switches)
 
@@ -2439,6 +2443,415 @@ def phase10c_svgp():
           f"an epoch reads the host {sum(epoch_syncs.values())} times")
 
 
+def _card_line():
+    """The card's name and power limit as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else ""
+
+
+def phase11_single_card_surface():
+    """The single-card surface beside the kernels, each number printed with
+    the card's name and power limit: (a) the sorted SKI plan at the
+    flagship's full size against K2 / K3 and a float64 run of itself; (b)
+    one SKI + BBMM step of rp_poly_j20_ski on sml on the sorted plan
+    against the dense plan; (c) train_with_checkpointing on
+    rp_bbmm_elevators, 20 steps against 10 and a resume to 20; (d) the
+    runner's --profile on rp_ski_d2_j6 / protein; (e) the step-0 stall
+    warning, and the trainer's host reads on the flagship grid step."""
+    card = _card_line()
+
+    def say11(msg):
+        say(11, f"{msg} [{card}]")
+
+    phase11a_sorted_plan(say11)
+    phase11b_sorted_ski_bbmm(say11)
+    phase11c_checkpoint_resume(say11)
+    phase11d_profile(say11)
+    phase11e_stall_warning(say11)
+
+
+def _timed_with_peak(fn, iters=3):
+    """(result, ms a call by CUDA events, GiB allocated above the start
+    during one call)."""
+    import torch
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - before) / 2**30
+    return out, cuda_ms(fn, iters=iters), peak
+
+
+def phase11a_sorted_plan(say11):
+    """Phase 11 (a): the sorted plan's W^T V and W G at J = 20, m = 256 on
+    the full HouseElectric split (n = 1,844,352), t = 1 and 9, beside K2
+    and K3 on the same points; each direction's error against the sorted
+    plan in float64 on the card (the taps from tfrac in float64, the same
+    order); ski_mvm's value and V-gradient on the sorted state against the
+    dense one."""
+    import torch
+
+    from rpagp_torch.models import exact_gp
+    from rpagp_torch.ops import cuda_interp, ski
+    from rpagp_torch.utils.config import load_spec
+
+    dev = torch.device("cuda")
+    exp = load_spec(SPEC)
+    kspec = exp.model.kernel
+    x = torch.as_tensor(_split("houseelectric").train_x, device=dev)
+    n, m, J = x.shape[0], kspec.grid_size, kspec.J
+    params, buffers = exact_gp.init_model(
+        exp.model, x.shape[1], generator=torch.Generator().manual_seed(0),
+        device=dev)
+    kp, kb = params["kernel"], buffers["kernel"]
+    st_d = ski.build_ski(kspec, kp, kb, x, m, plan="dense")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    st_s = ski.build_ski(kspec, kp, kb, x, m, plan="sorted")
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    plan_gib = (torch.cuda.memory_allocated() - base) / 2**30
+    check(torch.equal(st_s.tfrac, st_d.tfrac), "the plans' tfrac differ")
+    check(int(st_s.bounds[:, -1].min()) == n, "a point lies past the grid")
+    # the same plan in float64: taps from tfrac in float64, the same order
+    _, w4_64 = ski._tap_geometry(st_s.tfrac.double(), m)
+    st64 = st_s._replace(
+        w4=w4_64, cells=st_s.cells.double(),
+        w4_sorted=torch.gather(w4_64, 2, st_s.order.long().expand(4, -1, -1)))
+    say11(f"sorted plan of the flagship split (J={J}, n={n}, m={m}): built "
+          f"in {t_build:.3f} s, {plan_gib:.3f} GiB beside the dense state "
+          f"(i0, w4, order, w4_sorted, bounds)")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    for t in (1, 9):
+        V = torch.randn(n, t, generator=gen, device=dev)
+        G = torch.randn(J, t, m, generator=gen, device=dev)
+        U, ms_us, pk_us = _timed_with_peak(
+            lambda: ski._interp_transpose_impl(st_s, V))
+        Uk, ms_uk, pk_uk = _timed_with_peak(
+            lambda: cuda_interp.interp_transpose_cuda(st_s.tfrac, V, m))
+        O, ms_os, pk_os = _timed_with_peak(
+            lambda: ski._interp_apply_impl(st_s, G).sum(0).T)
+        Ok, ms_ok, pk_ok = _timed_with_peak(
+            lambda: cuda_interp.interp_apply_sum_cuda(st_s.tfrac, G))
+        with torch.no_grad():
+            U64 = ski._interp_transpose_impl(st64, V.double())
+            O64 = ski._interp_apply_impl(st64, G.double()).sum(0).T
+        for name, a in (("W^T V", U), ("K2", Uk), ("W G", O), ("K3", Ok)):
+            check(bool(torch.isfinite(a).all()), f"t={t} {name} not finite")
+        b_ms, b_by, _ = bound(4 * (J * n + n * t + J * t * m),
+                              flops=2 * 4 * J * n * t)
+        say11(f"t={t}: W^T V sorted {ms_us:.4f} ms (+{pk_us:.3f} GiB "
+              f"transient, rel to float64 {rel(U, U64):.2e}) vs K2 "
+              f"{ms_uk:.4f} ms (+{pk_uk:.3f} GiB, rel {rel(Uk, U64):.2e}); "
+              f"W G sorted {ms_os:.4f} ms (+{pk_os:.3f} GiB, rel "
+              f"{rel(O, O64):.2e}) vs K3 {ms_ok:.4f} ms (+{pk_ok:.3f} GiB, "
+              f"rel {rel(Ok, O64):.2e}); bound of each {b_ms:.4f} ms "
+              f"({b_by}); sorted vs kernel rel {rel(U, Uk):.2e} (W^T V), "
+              f"{rel(O, Ok):.2e} (W G)")
+        del U, Uk, O, Ok, U64, O64
+    del st64, w4_64
+    W = torch.randn(n, 9, generator=gen, device=dev)
+    got = {}
+    for name, st in (("sorted", st_s), ("dense", st_d)):
+        v = V.clone().requires_grad_(True)
+        o = ski.ski_mvm(kspec, kp, st, v)
+        torch.sum(o * W).backward()
+        check(bool(torch.isfinite(o).all() and torch.isfinite(v.grad).all()),
+              f"ski_mvm on the {name} plan not finite")
+        got[name] = (o.detach(), v.grad)
+    say11(f"ski_mvm at t=9, sorted against dense: value rel "
+          f"{rel(got['sorted'][0], got['dense'][0]):.2e}, V-gradient rel "
+          f"{rel(got['sorted'][1], got['dense'][1]):.2e}")
+    del got, st_s, st_d, V, W
+    torch.cuda.empty_cache()
+
+
+def phase11b_sorted_ski_bbmm(say11):
+    """Phase 11 (b): rp_poly_j20_ski on sml split 0 (J = 20, m = 512,
+    t = 11) on the sorted plan (interp set to "sorted" in memory): the MLL
+    value and gradient against the dense plan on the same probe normals;
+    5 timed steps of each plan."""
+    import torch
+
+    from rpagp_torch.models import exact_gp
+    from rpagp_torch.ops import iterative
+    from rpagp_torch.ops.exact import LOG_2PI
+    from rpagp_torch.utils.config import load_spec
+
+    dev = torch.device("cuda")
+    spec_d = load_spec(SPEC_SKI_SML).model
+    spec_s = dataclasses.replace(spec_d, kernel=dataclasses.replace(
+        spec_d.kernel, interp="sorted"))
+    split = _dense_split()
+    x = torch.as_tensor(split.train_x, device=dev)
+    y = torch.as_tensor(split.train_y, device=dev)
+    n = x.shape[0]
+    p0, b0 = exact_gp.init_model(spec_d, x.shape[1],
+                                 generator=torch.Generator().manual_seed(0),
+                                 device="cpu")
+    gen = torch.Generator().manual_seed(9)
+    eps_small = torch.randn(spec_d.precond_rank, spec_d.num_probes,
+                            generator=gen).to(dev)
+    eps_big = torch.randn(n, spec_d.num_probes, generator=gen).to(dev)
+    out = {}
+    for name, spec in (("dense", spec_d), ("sorted", spec_s)):
+        p = _to(p0, dev)
+        b = exact_gp.prepare_buffers(spec, p, _to(b0, dev), x)
+        check((b["ski_state"].order is not None) == (name == "sorted"),
+              f"the {name} spec built the other plan")
+        lv = [p["raw_noise"], p["mean_const"], *p["kernel"].values()]
+        for t in lv:
+            t.requires_grad_(True)
+        iq, ld = iterative.inv_quad_logdet_eps(spec, p, b, x, y, eps_small,
+                                               eps_big)
+        v = -0.5 * (iq + ld + n * LOG_2PI)
+        v.backward()
+        pt = _to(p0, dev)
+        _, step = _adam_step(spec, pt, [exact_gp.prepare_buffers(
+            spec, pt, _to(b0, dev), x)], x, y,
+            torch.Generator(device=dev).manual_seed(1))
+        step()  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        step_ms, fwd_ms, _ = _timed_steps(step, 5)
+        out[name] = (float(v.detach()), [t.grad for t in lv], step_ms,
+                     statistics.median(fwd_ms),
+                     torch.cuda.max_memory_allocated() / 2**30)
+        check(math.isfinite(out[name][0]), f"{name} MLL not finite")
+    (vd, gd, sd, fd, md), (vs, gs, ss, fs, ms) = out["dense"], out["sorted"]
+    say11(f"rp_poly_j20_ski on sml (n={n}), MLL on the same probe normals: "
+          f"sorted {vs:.6f}, dense {vd:.6f}, value rel "
+          f"{abs(vs - vd) / abs(vd):.2e}, gradient relerr "
+          f"{_grad_relerr(gs, gd):.2e}; a step: sorted median "
+          f"{statistics.median(ss):.2f} ms (all "
+          f"{', '.join(f'{v:.2f}' for v in ss)}; forward {fs:.2f}; peak "
+          f"{ms:.2f} GiB), dense median {statistics.median(sd):.2f} ms "
+          f"(forward {fd:.2f}; peak {md:.2f} GiB) in the same run; phase 9 "
+          f"(a) 150-161 ms in earlier runs")
+
+
+def phase11c_checkpoint_resume(say11):
+    """Phase 11 (c): rp_bbmm_elevators (K4 / K5; probes from a CUDA
+    generator) on its full split through train_with_checkpointing: 20
+    steps in one call against 10 and a resume to 20 in a fresh call (handed
+    a generator of another seed); then the step-10 checkpoint loaded into a
+    fresh Adam and generator on the card."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from rpagp_torch import train
+    from rpagp_torch.mll import mll
+    from rpagp_torch.models import exact_gp
+    from rpagp_torch.utils import checkpoint
+    from rpagp_torch.utils.config import load_spec
+
+    dev = torch.device("cuda")
+    exp = load_spec(SPEC_BBMM)
+    spec = exp.model
+    split = _split("elevators")
+    x = torch.as_tensor(split.train_x, device=dev)
+    y = torch.as_tensor(split.train_y, device=dev)
+    n = x.shape[0]
+    check(n == N_ELEVATORS_TRAIN, f"unexpected elevators split {x.shape}")
+    p0, b0 = exact_gp.init_model(spec, x.shape[1],
+                                 generator=torch.Generator().manual_seed(0),
+                                 device=dev)
+    args = (exact_gp.prepare_buffers(spec, p0, b0, x), x, y)
+
+    def loss(p, b, xx, yy, g):
+        return -mll(spec, p, b, xx, yy, g) / n
+
+    def run(d, iters, seed):
+        t0 = time.perf_counter()
+        r = train.train_with_checkpointing(
+            loss, p0, d, lr=exp.train.lr, max_iters=iters,
+            checkpoint_every=10, loss_args=args,
+            generator=torch.Generator(device=dev).manual_seed(seed))
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as d:
+        full, t_full = run(os.path.join(d, "a"), 20, 1)
+        part, t_part = run(os.path.join(d, "b"), 10, 1)
+        res, t_res = run(os.path.join(d, "b"), 20, 2)
+        check(all(math.isfinite(v) for v in full.losses + res.losses),
+              "checkpointed losses not finite")
+        check(res.iterations == 10 and len(res.losses) == 20,
+              f"resume: {res.iterations} steps, {len(res.losses)} losses")
+        loss_rel = max(abs(a - b) / abs(b)
+                       for a, b in zip(res.losses, full.losses))
+        pa, pb = train._leaves(res.params), train._leaves(full.params)
+        par_rel = max(float(torch.linalg.norm((a - b).double())
+                            / torch.linalg.norm(b.double()))
+                      for a, b in zip(pa, pb))
+        same = res.losses == full.losses and all(
+            torch.equal(a, b) for a, b in zip(pa, pb))
+        like = train.checkpoint_state(
+            p0, torch.optim.Adam(train._leaves(p0)),
+            torch.Generator(device=dev), 0,
+            train.ConvergenceTracker(1, 0.0, best_params=p0))
+        c_full, c_res = (checkpoint.load_checkpoint(
+            os.path.join(d, s, "ckpt_00000020"), like) for s in ("a", "b"))
+        ckpt_same = [p for (p, a), (_, b) in zip(
+            checkpoint._flatten(c_full), checkpoint._flatten(c_res))
+            if not torch.equal(a, b)]
+        # the step-10 checkpoint into a fresh Adam and generator on the card
+        path10 = os.path.join(d, "b", "ckpt_00000010")
+        c10 = checkpoint.load_checkpoint(path10, like)
+        params10 = c10["params"]
+        opt = torch.optim.Adam(train._leaves(params10))
+        train.set_adam_state(opt, params10, c10["opt_state"])
+        back = train._adam_state(opt, params10)
+        g = torch.Generator(device=dev)
+        g.set_state(c10["generator"])
+        with np.load(path10 + ".npz") as raw:
+            saved = [raw[f"leaf_{i}"] for i in range(len(raw.files))]
+        flat10 = checkpoint._flatten(c10)
+        trip = (all(torch.equal(a, b) for k in ("exp_avg", "exp_avg_sq",
+                                                "step")
+                    for a, b in zip(train._leaves(back[k]),
+                                    train._leaves(c10["opt_state"][k])))
+                and torch.equal(g.get_state(), c10["generator"])
+                and all(np.array_equal(a.cpu().numpy(), s)
+                        for (_, a), s in zip(flat10, saved))
+                and all(a.device.type == "cuda"
+                        for a in train._leaves(c10["opt_state"]["exp_avg"])))
+    say11(f"train_with_checkpointing rp_bbmm_elevators (n={n}): 20 steps "
+          f"{t_full:.2f} s; 10 steps {t_part:.2f} s + resume to 20 "
+          f"{t_res:.2f} s; resumed against uninterrupted: bit for bit "
+          f"{same}, largest loss rel diff {loss_rel:.3e}, params "
+          f"{par_rel:.3e}; step-20 checkpoints differ in "
+          f"{len(ckpt_same)} of {len(checkpoint._flatten(c_full))} leaves "
+          f"{ckpt_same}; loss {full.losses[0]:.5f} -> {full.losses[-1]:.5f}; "
+          f"step-10 checkpoint into a fresh Adam and CUDA generator: "
+          f"exp_avg / exp_avg_sq / step / generator state round-trip "
+          f"exactly {trip}")
+    check(trip, "the checkpoint's Adam or generator state did not "
+                "round-trip")
+
+
+def phase11d_profile(say11):
+    """Phase 11 (d): runner.main on rp_ski_d2_j6 (cut to 10 steps) /
+    protein, one split, with and without --profile: the trace's kernel
+    events, K1's among them (launched through ctypes), and the split's
+    train time both ways."""
+    import csv
+    import glob
+    import tempfile
+
+    from rpagp_torch import runner
+
+    with open(SPEC_PRODUCT) as f:
+        spec = json.load(f)
+    spec["training"]["max_iters"] = 10
+    with tempfile.TemporaryDirectory() as d:
+        spec_path = os.path.join(d, "rp_ski_d2_j6_10.json")
+        with open(spec_path, "w") as f:
+            json.dump(spec, f)
+        trace_dir = os.path.join(d, "trace")
+        rows = {}
+        for prof in (False, True):
+            out = os.path.join(d, f"r{int(prof)}.csv")
+            argv = ["--model_spec", spec_path, "--datasets", "protein",
+                    "--splits", "10", "--max_splits", "1", "--output", out]
+            t0 = time.perf_counter()
+            runner.main(argv + (["--profile", trace_dir] if prof else []))
+            wall = time.perf_counter() - t0
+            with open(out) as f:
+                rows[prof] = (next(csv.DictReader(f)), wall)
+        files = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+        check(len(files) == 1, f"--profile wrote {files}")
+        size = os.path.getsize(files[0])
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    k1 = [e for e in kern if "chol_linv_coop_kernel" in e.get("name", "")]
+    check(len(k1) > 0, "the trace holds no chol_linv_coop_kernel event")
+    (r0, w0), (r1, w1) = rows[False], rows[True]
+    say11(f"runner.main --profile rp_ski_d2_j6 (10 steps) on protein split 0 "
+          f"(n={r1['n_train']}): trace {size / 2**20:.2f} MiB, "
+          f"{len(kern)} kernel events, {len(k1)} of chol_linv_coop_kernel "
+          f"({sum(e.get('dur', 0) for e in k1) / 1e3:.3f} ms); train "
+          f"{float(r1['train_time_s']):.3f} s traced, "
+          f"{float(r0['train_time_s']):.3f} s untraced (main {w1:.2f} s and "
+          f"{w0:.2f} s); rmse {float(r1['rmse']):.4f} and "
+          f"{float(r0['rmse']):.4f}")
+
+
+def phase11e_stall_warning(say11):
+    """Phase 11 (e): the step-0 stall warning on CUDA params (once for a
+    zero-gradient loss, never for a live one); the flagship grid MLL through
+    train_to_convergence for 3 steps (sync_every 8), device->host syncs
+    with the stall check and without it."""
+    import contextlib
+    import io
+
+    import torch
+
+    from rpagp_torch import train
+    from rpagp_torch.mll import mll
+    from rpagp_torch.models import exact_gp
+    from rpagp_torch.ops import grid_solve
+    from rpagp_torch.utils.config import TrainConfig, load_spec
+
+    dev = torch.device("cuda")
+    warned = []
+    for f in (lambda p: torch.sum(p["w"]) * 0.0,
+              lambda p: torch.sum(p["w"] ** 2)):
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            train.train_to_convergence(f, {"w": torch.ones(3, device=dev)},
+                                       TrainConfig(max_iters=3))
+        warned.append(err.getvalue().count(
+            "[warn] training stalled at step 0"))
+    check(warned == [1, 0], f"stall warnings (zero gradient, live): {warned}")
+
+    exp = load_spec(SPEC)
+    spec = exp.model
+    split = _split("houseelectric")
+    x = torch.as_tensor(split.train_x, device=dev)
+    y = torch.as_tensor(split.train_y, device=dev)
+    n = x.shape[0]
+    params, buffers = exact_gp.init_model(
+        spec, x.shape[1], generator=torch.Generator().manual_seed(0),
+        device=dev)
+    buffers = exact_gp.prepare_buffers(spec, params, buffers, x, y_train=y)
+    tc = dataclasses.replace(exp.train, max_iters=3)
+
+    def fit():
+        return train.train_to_convergence(
+            lambda p, b, xx, yy: -mll(spec, p, b, xx, yy) / n, params, tc,
+            loss_args=(buffers, x, y), sync_every=8)
+
+    fit()  # warm-up
+    grid_solve.reset_stats()
+    on = _count_syncs(fit)
+    grid_reads = grid_solve.stats["host_reads"]
+    real = train._warn_if_frozen
+    train._warn_if_frozen = lambda *a: None
+    try:
+        off = _count_syncs(fit)
+    finally:
+        train._warn_if_frozen = real
+    stall = {s: c for s, c in on.items() if "_warn_if_frozen" in s}
+    say11(f"stall warning on CUDA params: {warned[0]} line for a zero "
+          f"gradient, {warned[1]} for a live loss; flagship grid MLL, 3 "
+          f"steps of train_to_convergence (sync_every 8): device->host syncs "
+          f"{sum(on.values())} with the stall check, {sum(off.values())} "
+          f"without ({stall}); the grid solver's host reads "
+          f"{grid_reads / 3:.2f} a step (phase 4: 4)")
+    check(sum(on.values()) - sum(off.values()) == 1
+          and sum(stall.values()) == 1,
+          f"the stall check reads the host {sum(on.values())} - "
+          f"{sum(off.values())} times")
+
+
 def main():
     import torch
 
@@ -2454,7 +2867,8 @@ def main():
             lambda: phase7_bbmm_main_path(results),
             lambda: phase8_dense_main_path(results),
             lambda: phase9_ski_bbmm(results),
-            lambda: phase10_product_ski_and_svgp(results))):
+            lambda: phase10_product_ski_and_svgp(results),
+            phase11_single_card_surface)):
         tp = time.perf_counter()
         fn()
         say(phase, f"phase {phase} took {time.perf_counter() - tp:.1f} s")

@@ -23,7 +23,17 @@ each path runs written in CUDA (csrc/):
   on the factor Toeplitz ladder and the p x p factor's leaves;
 - SVGP (models/svgp.py): the whitened inducing-point ELBO and minibatch
   training.
-Every spec in specs/ runs; see ROADMAP.md for the rest.
+Every spec in specs/ runs, on either SKI interpolation plan (the sorted
+one plain torch); train_with_checkpointing resumes training from its
+checkpoints (utils/checkpoint.py), utils/profiling.py traces a run and
+utils/results.py tabulates the runner's CSVs. See ROADMAP.md for the
+rest.
+
+The public surface is the JAX package's: KernelSpec / ModelSpec,
+init_model / prepare_buffers / exact_mll / predict, mll / posterior /
+posterior_cov / sample_posterior / make_predictor, train_to_convergence /
+train_fixed, gen_rp / space_equally, load_dataset / kfold_splits /
+single_split.
 
 Numerics: f32 throughout with TF32 off. The grid solver's Cholesky
 factors sit at the edge of f32 conditioning, so every matmul runs in
@@ -36,7 +46,17 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
-from .models.exact_gp import ModelSpec, init_model, prepare_buffers  # noqa: E402
+from .models.exact_gp import (ModelSpec, exact_mll, init_model,  # noqa: E402
+                              predict, prepare_buffers)
+from .mll import (make_predictor, mll, posterior,  # noqa: E402
+                  posterior_cov, sample_posterior)
 from .ops.kernels import KernelSpec  # noqa: E402
+from .projections import gen_rp, space_equally  # noqa: E402
+from .train import train_fixed, train_to_convergence  # noqa: E402
+from .utils.datasets import kfold_splits, load_dataset, single_split  # noqa: E402
 
-__all__ = ["KernelSpec", "ModelSpec", "init_model", "prepare_buffers"]
+__all__ = ["KernelSpec", "ModelSpec", "init_model", "prepare_buffers",
+           "exact_mll", "predict", "mll", "posterior", "posterior_cov",
+           "sample_posterior", "make_predictor", "gen_rp", "space_equally",
+           "train_to_convergence", "train_fixed", "load_dataset",
+           "kfold_splits", "single_split"]

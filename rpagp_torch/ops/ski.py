@@ -1,4 +1,5 @@
-"""SKI grid interpolation, dense plan (port of rpagp/ops/ski.py).
+"""SKI grid interpolation, dense and sorted plans (port of
+rpagp/ops/ski.py).
 
 Per component j, K_j ~= W_j T_j W_j^T with W_j the cubic-convolution
 interpolation of the projected coordinates onto a regular m-point grid
@@ -12,9 +13,18 @@ package's custom_vjp pair. T_j V is a 2m circulant embedding and batched
 real FFTs (torch.fft), differentiated by autograd. `ski_mvm` chains the
 three: K2, the Toeplitz product, K3.
 
+The sorted plan (KernelSpec.interp = "sorted", or build_ski(plan=
+"sorted")) keeps the taps themselves: W^T V sorts the points by base cell
+once per dataset, then takes a per-tap cumsum over them and differences
+it at the cells' boundaries, with no scatter; W G is one gather of the 4
+tap-shifted copies of G. It is plain torch on the CPU and on the card, as
+the JAX package's is XLA; its two directions (interp_transpose,
+interp_apply) are each other's backward too. The grid solver reads only
+tfrac, so it runs K2 / K3 on a state of either plan.
+
 Product components (degree * sub_dim > 1) take `build_ski_factors`: one
-geometry row per 1-D factor, which ops/ski_product.py combines. The
-sorted interp plan (KernelSpec.interp = "sorted") is ROADMAP queue 1.
+geometry row per 1-D factor (dense plan), which ops/ski_product.py
+combines.
 """
 
 from __future__ import annotations
@@ -28,14 +38,24 @@ from . import cuda_interp
 from .cuda_interp import cubic_kernel as _cubic_kernel
 from .kernels import KernelSpec, _component_scales, _get_proj, _k1d
 
+# transient-memory budget of the sorted plan's component groups: a group
+# of g components holds (g, t, n) products (rpagp/ops/ski.py:72)
+_GROUP_BUDGET_ELEMS = 1 << 28
+
 
 class SKIState(NamedTuple):
-    """Per-dataset interpolation geometry (dense plan) for J components."""
+    """Per-dataset interpolation geometry for J components. The dense plan
+    fills the first four fields; the sorted plan's five are None there."""
 
     grid_lo: torch.Tensor  # (J,) left grid endpoint per component
     h: torch.Tensor  # (J,) grid spacing per component
     cells: torch.Tensor  # (m,) f32 cell indices 0..m-1
     tfrac: torch.Tensor  # (J, n) fractional grid coordinate, contiguous
+    i0: torch.Tensor | None = None  # (J, n) int32 base cell (taps i0-1..i0+2)
+    w4: torch.Tensor | None = None  # (4, J, n) tap weights
+    order: torch.Tensor | None = None  # (J, n) int32 points sorted by i0
+    w4_sorted: torch.Tensor | None = None  # (4, J, n) w4 in that order
+    bounds: torch.Tensor | None = None  # (J, m) int32 #sorted points i0 <= c
 
     @property
     def m(self) -> int:
@@ -70,18 +90,20 @@ def _check_learn_proj(spec: KernelSpec):
 
 
 def build_ski(spec: KernelSpec, kparams, kbuffers, x, grid_size: int,
-              z_bounds=None):
+              z_bounds=None, plan: str | None = None):
     """SKI geometry for inputs x (once per dataset). z_bounds: optional
-    (lo (J,), hi (J,)) for a grid covering more than x."""
+    (lo (J,), hi (J,)) for a grid covering more than x. plan: "dense" or
+    "sorted" (None: spec.interp)."""
     if (not spec.is_projection or any(d != 1 for d in spec.degrees)
             or spec.sub_dim != 1):
         raise ValueError("SKI supports degree-1, sub_dim-1 projection "
                          "kernels only")
     _check_learn_proj(spec)
-    if spec.interp != "dense":
-        raise NotImplementedError("the sorted interp plan is ROADMAP queue 1")
+    plan = spec.interp if plan is None else plan
+    if plan not in ("dense", "sorted"):
+        raise ValueError(f"unknown SKI interp plan {plan!r}")
     z = project(spec, kparams, kbuffers, x)
-    return _geometry_from_z(z, int(grid_size), z_bounds)
+    return _geometry_from_z(z, int(grid_size), z_bounds, plan)
 
 
 def build_ski_factors(spec: KernelSpec, kparams, kbuffers, x, grid_size: int,
@@ -122,7 +144,9 @@ def margin_bounds(spec: KernelSpec, kparams, kbuffers, x):
     return lo - GRID_MARGIN * span, hi + GRID_MARGIN * span
 
 
-def _geometry_from_z(z, m: int, z_bounds):
+def _geometry_from_z(z, m: int, z_bounds, plan: str = "dense"):
+    """z (rows, n) -> SKIState, one grid per row; the sorted plan adds the
+    taps and the points' order by base cell."""
     if z_bounds is None:
         lo, hi = torch.amin(z, dim=1), torch.amax(z, dim=1)
     else:
@@ -133,7 +157,21 @@ def _geometry_from_z(z, m: int, z_bounds):
     grid_lo = lo - 2.0 * h
     cells = torch.arange(m, dtype=z.dtype, device=z.device)
     t = ((z - grid_lo[:, None]) / h[:, None]).contiguous()
-    return SKIState(grid_lo=grid_lo, h=h, cells=cells, tfrac=t)
+    if plan == "dense":
+        return SKIState(grid_lo=grid_lo, h=h, cells=cells, tfrac=t)
+    i0, w4 = _tap_geometry(t, m)
+    # stable, as jnp.argsort: ties keep the points' order, so the cumsum
+    # adds in the JAX package's order
+    order = torch.argsort(i0, dim=1, stable=True)
+    i0_sorted = torch.gather(i0, 1, order)
+    w4_sorted = torch.gather(w4, 2, order.expand(4, -1, -1))
+    cell_ids = torch.arange(m, dtype=i0.dtype, device=i0.device)
+    # bounds[j, c] = #points of component j with i0 <= c
+    bounds = torch.searchsorted(
+        i0_sorted, cell_ids.expand(i0.shape[0], m).contiguous(), right=True)
+    return SKIState(grid_lo=grid_lo, h=h, cells=cells, tfrac=t, i0=i0, w4=w4,
+                    order=order.to(torch.int32), w4_sorted=w4_sorted,
+                    bounds=bounds.to(torch.int32))
 
 
 def toeplitz_columns(spec: KernelSpec, kparams, state: SKIState):
@@ -181,6 +219,140 @@ def dense_interp_apply_sum(state: SKIState, G):
     return _DenseInterpApplySum.apply(state.tfrac, G)
 
 
+def _component_group_size(J: int, n: int, t: int) -> int:
+    return max(1, min(J, _GROUP_BUDGET_ELEMS // max(1, n * 4 * t)))
+
+
+def _by_groups(fn, t: int, taps, *rows):
+    """fn(*rows, taps) over groups of components (the rows sliced on axis
+    0, the (4, J, n) taps on axis 1), concatenated: a group's (g, t, n)
+    transients stay within _GROUP_BUDGET_ELEMS."""
+    _, J, n = taps.shape
+    g = _component_group_size(J, n, t)
+    if g >= J:
+        return fn(*rows, taps)
+    return torch.cat([fn(*(r[s:s + g] for r in rows), taps[:, s:s + g])
+                      for s in range(0, J, g)])
+
+
+def _spread_sorted(state: SKIState, Vs):
+    """Scatter-free spread: Vs (J, t, n), each component's points in sorted
+    order -> grid values (J, t, m). Cell c gathers, for tap k, the sorted
+    points with i0 == c + 1 - k: a per-tap cumsum over the points,
+    differenced at bounds[c - k + 1] and bounds[c - k]."""
+    t = Vs.shape[1]
+    m = state.bounds.shape[1]
+    cells = torch.arange(m, device=Vs.device)
+
+    def spread_group(Vg, bg, wg):
+        # Vg (g, t, n), bg (g, m), wg (4, g, n)
+        g = Vg.shape[0]
+        zero = Vg.new_zeros(g, t, 1)
+        out = Vg.new_zeros(g, t, m)
+        for tap in range(4):
+            csum = torch.cat([zero, torch.cumsum(wg[tap][:, None, :] * Vg,
+                                                 dim=-1)], dim=-1)
+            shift = 1 - tap  # i0 = c + (1 - tap)
+            src = torch.clamp(cells + shift, -1, m - 1)
+            hi = torch.where(cells + shift < 0, 0,
+                             bg[:, torch.clamp(src, min=0)])
+            lo = torch.where(cells + shift - 1 < 0, 0,
+                             bg[:, torch.clamp(src - 1, min=0)])
+            out = out + (torch.gather(csum, 2, hi.long()[:, None, :]
+                                      .expand(g, t, m))
+                         - torch.gather(csum, 2, lo.long()[:, None, :]
+                                        .expand(g, t, m)))
+        return out
+
+    return _by_groups(spread_group, t, state.w4_sorted, Vs, state.bounds)
+
+
+def _sorted_rows(state: SKIState, rows):
+    """rows (J, t, n) -> each component's row in its sorted point order."""
+    J, t, n = rows.shape
+    return torch.gather(rows, 2,
+                        state.order.long()[:, None, :].expand(J, t, n))
+
+
+def _interp_transpose_impl(state: SKIState, V):
+    """W^T V: V (n, t) -> grid values (J, t, m); one gather brings V into
+    each component's sorted order."""
+    J = state.order.shape[0]
+    return _spread_sorted(state, _sorted_rows(
+        state, V.T[None].expand(J, -1, -1)))
+
+
+def _interp_transpose_per_component(state: SKIState, rows):
+    """W_j^T rows_j, a right-hand side per component: (J, t, n) ->
+    (J, t, m)."""
+    return _spread_sorted(state, _sorted_rows(state, rows))
+
+
+def _interp_apply_impl(state: SKIState, G):
+    """W G: grid values (J, t, m) -> point values (J, t, n). At t >= 4 one
+    gather of each point's base cell from the 4 tap-shifted copies of G
+    stacked as (g, 4t, m) (rolled: a border point's outer taps wrap, with
+    weight ~0); at t < 4 a clipped gather per tap."""
+    t, m = G.shape[1:]
+    n = state.i0.shape[1]
+
+    def apply_group(Gg, i0g, wg):
+        # Gg (g, t, m), i0g (g, n), wg (4, g, n)
+        g = Gg.shape[0]
+        out = 0.0
+        if t < 4:
+            for k in range(4):
+                idx = torch.clamp(i0g + (k - 1), 0, m - 1).long()
+                gk = torch.gather(Gg, 2, idx[:, None, :].expand(g, t, n))
+                out = out + wg[k][:, None, :] * gk
+            return out
+        G4 = torch.cat([torch.roll(Gg, 1 - k, dims=-1) for k in range(4)],
+                       dim=1)  # (g, 4t, m)
+        rows = torch.gather(G4, 2, i0g.long()[:, None, :]
+                            .expand(g, 4 * t, n))  # (g, 4t, n)
+        for k in range(4):
+            out = out + wg[k][:, None, :] * rows[:, k * t:(k + 1) * t, :]
+        return out
+
+    return _by_groups(apply_group, t, state.w4, G, state.i0)
+
+
+class _InterpTranspose(torch.autograd.Function):
+    """W^T V whose backward is the sorted apply, summed over components."""
+
+    @staticmethod
+    def forward(ctx, state, V):
+        ctx.state = state
+        return _interp_transpose_impl(state, V)
+
+    @staticmethod
+    def backward(ctx, G_bar):
+        return None, _interp_apply_impl(ctx.state, G_bar).sum(0).T
+
+
+class _InterpApply(torch.autograd.Function):
+    """W G whose backward is the sorted spread, per component."""
+
+    @staticmethod
+    def forward(ctx, state, G):
+        ctx.state = state
+        return _interp_apply_impl(state, G)
+
+    @staticmethod
+    def backward(ctx, rows_bar):
+        return None, _interp_transpose_per_component(ctx.state, rows_bar)
+
+
+def interp_transpose(state: SKIState, V):
+    """W^T V, sorted plan: (n, t) -> (J, t, m)."""
+    return _InterpTranspose.apply(state, V)
+
+
+def interp_apply(state: SKIState, G):
+    """W G, sorted plan: (J, t, m) -> (J, t, n)."""
+    return _InterpApply.apply(state, G)
+
+
 def sym_toeplitz_matmul(col, U):
     """(J, m) Toeplitz first columns x (J, t, m) -> (J, t, m) through a 2m
     circulant embedding and batched real FFTs over the last axis.
@@ -201,18 +373,25 @@ def sym_toeplitz_matmul(col, U):
 
 def ski_mvm(spec: KernelSpec, kparams, state: SKIState, V,
             state_rhs: SKIState | None = None):
-    """K_ski V = sum_j scale_j W_j T_j W'_j^T V, (n, t): K2 on the RHS
-    points, the Toeplitz product, the component scales folded into grid
-    space, K3 on `state`'s points. state_rhs: the RHS points' geometry
+    """K_ski V = sum_j scale_j W_j T_j W'_j^T V, (n, t). Dense plan: K2 on
+    the RHS points, the Toeplitz product, the component scales folded into
+    grid space, K3 on `state`'s points. A sorted state takes its plan's
+    direction instead, and the sorted apply is per component, contracted
+    with the scales afterwards. state_rhs: the RHS points' geometry
     for a cross MVM (K(test, train) v: state = test, state_rhs = train);
     both must lie on one grid (build_ski with common z_bounds)."""
     if state_rhs is None:
         state_rhs = state
     col = toeplitz_columns(spec, kparams, state)  # (J, m)
     scales = _component_scales(spec, kparams)  # (J,)
-    U = dense_interp_transpose(state_rhs, V)  # (J, t, m)
+    if state_rhs.order is None:
+        U = dense_interp_transpose(state_rhs, V)  # (J, t, m)
+    else:
+        U = interp_transpose(state_rhs, V)
     TU = sym_toeplitz_matmul(col, U)
-    return dense_interp_apply_sum(state, scales[:, None, None] * TU)
+    if state.order is None:
+        return dense_interp_apply_sum(state, scales[:, None, None] * TU)
+    return torch.tensordot(scales, interp_apply(state, TU), dims=1).T
 
 
 def ski_gram_diag(spec: KernelSpec, kparams, state: SKIState):
@@ -222,6 +401,8 @@ def ski_gram_diag(spec: KernelSpec, kparams, state: SKIState):
     col = toeplitz_columns(spec, kparams, state)  # (J, m)
     taps = torch.arange(4, device=col.device)
     Tlocal = col[:, torch.abs(taps[:, None] - taps[None, :])]  # (J, 4, 4)
-    _, w4 = _tap_geometry(state.tfrac, state.m)
+    w4 = state.w4
+    if w4 is None:  # a dense state: the taps from tfrac
+        _, w4 = _tap_geometry(state.tfrac, state.m)
     quad = torch.einsum("jab,ajn,bjn->jn", Tlocal, w4, w4)
     return _component_scales(spec, kparams) @ quad

@@ -14,6 +14,11 @@ Usage:
       --datasets protein --splits 10 --max_splits 1
   python -m rpagp_torch.runner --model_spec specs/svgp_m512.json \
       --datasets elevators --splits 10 --max_splits 1
+  python -m rpagp_torch.runner --model_spec specs/rp_ski_d2_j6.json \
+      --datasets protein --splits 10 --max_splits 1 --profile traces/
+
+--profile LOGDIR traces the first split with torch.profiler
+(utils.profiling.trace) and writes its Chrome-trace JSON into LOGDIR.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from .ops.exact import gaussian_nll
 from .train import train_to_convergence
 from .utils import datasets as data_mod
 from .utils.config import ExperimentSpec, load_spec
+from .utils.profiling import trace
 
 CSV_COLUMNS = [
     "dataset",
@@ -197,6 +203,9 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device: cuda runs the CUDA kernels, cpu "
                          "their plain versions")
+    ap.add_argument("--profile", metavar="LOGDIR", default=None,
+                    help="write a torch.profiler trace of the first split "
+                         "to LOGDIR (Chrome-trace JSON)")
     args = ap.parse_args(argv)
 
     exp = load_spec(args.model_spec)
@@ -210,7 +219,15 @@ def main(argv=None):
                 ds, k=args.splits, seed=args.seed, equal_train=True)):
             if args.max_splits is not None and i >= args.max_splits:
                 break
-            m = run_split(exp, split, seed=args.seed + i, device=args.device)
+            if args.profile and i == 0 and not rows:
+                with trace(args.profile, device=args.device):
+                    m = run_split(exp, split, seed=args.seed + i,
+                                  device=args.device)
+                print(f"[profile] trace written to {args.profile}",
+                      file=sys.stderr)
+            else:
+                m = run_split(exp, split, seed=args.seed + i,
+                              device=args.device)
             rows.append({"dataset": ds_name, "split": i, "model": exp.name,
                          "synthetic_data": ds.synthetic, **m})
             print(f"{ds_name}[{i}] n={m['n_train']} rmse={m['rmse']:.4f} "

@@ -25,18 +25,15 @@ _TUPLES = {cls._fields: cls for cls in (CGResult, LoveCache, Preconditioner)}
 
 def to_torch(tree, device="cuda"):
     """numpy / array-like tree -> the same tree of tensors on `device` (the
-    card unless the caller asks for the CPU; floating arrays as float32).
-    A JAX SKIState becomes the port's (its sorted-plan fields must be
-    None: only the dense plan ports), and a JAX CGResult, LoveCache or
-    Preconditioner the port's of that name."""
+    card unless the caller asks for the CPU; floating arrays as float32,
+    integer arrays keep their dtype). A JAX SKIState becomes the port's,
+    of either plan (a dense state's sorted-plan fields stay None), and a
+    JAX CGResult, LoveCache or Preconditioner the port's of that name."""
     if isinstance(tree, dict):
         return {k: to_torch(v, device) for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "tfrac"):
-        extra = [f for f in tree._fields
-                 if f not in SKIState._fields and getattr(tree, f) is not None]
-        if extra:
-            raise ValueError(f"only the dense SKI plan ports; got {extra}")
-        return SKIState(*(to_torch(getattr(tree, f), device)
+        return SKIState(*(None if getattr(tree, f) is None
+                          else to_torch(getattr(tree, f), device)
                           for f in SKIState._fields))
     if isinstance(tree, tuple) and getattr(tree, "_fields", None) in _TUPLES:
         return _TUPLES[tree._fields](*(to_torch(v, device) for v in tree))

@@ -200,6 +200,16 @@ def kfold_splits(ds: Dataset, k: int = 10, seed: int = 0, dtype=np.float32,
         yield _make_split(ds, train_idx, test_idx, dtype)
 
 
+def single_split(ds: Dataset, test_frac: float = 0.1, seed: int = 0,
+                 dtype=np.float32) -> Split:
+    """One train/test split: the first round(test_frac * n) rows (at least
+    1) of the seeded permutation are the test set."""
+    n = ds.X.shape[0]
+    perm = kfold_perm(n, seed)
+    n_test = max(1, int(round(test_frac * n)))
+    return _make_split(ds, perm[n_test:], perm[:n_test], dtype)
+
+
 def _make_split(ds: Dataset, train_idx, test_idx, dtype) -> Split:
     Xtr, ytr = ds.X[train_idx], ds.y[train_idx]
     Xte, yte = ds.X[test_idx], ds.y[test_idx]

@@ -288,6 +288,13 @@ sv = dataclasses.replace(sv, num_inducing=16, batch_size=64,
                          train=dataclasses.replace(sv.train, max_iters=20))
 m = runner.run_split(sv, split, seed=0, device="cpu")
 assert m["iterations"] == 2 and m["rmse"] == m["rmse"], m
+# the sorted SKI plan, checkpointed training, profiling and results
+sorted_exp = dataclasses.replace(ski_exp, model=dataclasses.replace(
+    ski_model, kernel=dataclasses.replace(ski_model.kernel, interp="sorted")))
+m = runner.run_split(sorted_exp, split, seed=0, device="cpu")
+assert m["rmse"] == m["rmse"] and m["nll"] == m["nll"], m
+from rpagp_torch.train import train_with_checkpointing
+from rpagp_torch.utils import checkpoint, profiling, results
 root = os.path.abspath("rpagp") + os.sep
 bad = sorted(k for k, mod in list(sys.modules.items())
              if k == "jax" or k.startswith("jax.") or k == "rpagp"
@@ -299,9 +306,10 @@ print("BAD", bad)
 
 def test_port_imports_nothing_of_jax():
     """A fresh process imports rpagp_torch and runs small CPU splits on the
-    BBMM, SKI + BBMM, product SKI and SVGP paths; afterwards no jax module,
-    no rpagp module and no module loaded from a file under rpagp/ is in
-    sys.modules."""
+    BBMM, SKI + BBMM (both interp plans), product SKI and SVGP paths and
+    imports the checkpoint, profiling and results utilities; afterwards no
+    jax module, no rpagp module and no module loaded from a file under
+    rpagp/ is in sys.modules."""
     proc = subprocess.run([sys.executable, "-c", _NO_JAX_SCRIPT], cwd=ROOT,
                           capture_output=True, text=True, timeout=300,
                           env={**os.environ, "OMP_NUM_THREADS": "2"})

@@ -16,6 +16,7 @@ variance rel <= 1e-4 (tight-tolerance CG and 40 Lanczos steps).
 """
 
 import dataclasses
+import importlib
 import math
 import os
 
@@ -30,7 +31,6 @@ from rpagp.models.exact_gp import ModelSpec as JModelSpec
 from rpagp.ops import cg as jcg
 from rpagp.ops import iterative as jiter
 from rpagp.ops.kernels import KernelSpec as JKernelSpec
-from rpagp_torch import mll as tmll
 from rpagp_torch import runner
 from rpagp_torch.models import exact_gp
 from rpagp_torch.models.exact_gp import ModelSpec
@@ -39,6 +39,9 @@ from rpagp_torch.ops.kernels import KernelSpec
 from rpagp_torch.utils import datasets
 from rpagp_torch.utils.config import load_spec
 from rpagp_torch.utils.convert import to_torch
+
+# the module (the package's `mll` is the function, as rpagp's is)
+tmll = importlib.import_module("rpagp_torch.mll")
 
 torch.set_num_threads(2)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

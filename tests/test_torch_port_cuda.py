@@ -815,3 +815,68 @@ def test_refresh_preconditioner_on_the_card(cuda_device):
               for a, b in zip(gg, gc))
     den = sum(float((b.double() ** 2).sum()) for b in gc)
     assert math.sqrt(num / den) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 9])
+def test_sorted_plan_against_k2_k3(cuda_device, t):
+    """The sorted plan (plain torch on the card) against K2 and K3 on one
+    state at J = 20, m = 256, n = 100,000: W^T V and sum_j W_j G_j agree at
+    2e-4 (the JAX package's bar for its two plans), and the sorted plan on
+    the card agrees with itself in float64 on the CPU at 1e-5."""
+    from rpagp_torch.ops import ski
+
+    kspec, kp, kb, x = _ski_case(20, 256, 100_000, seed=8)
+    st = ski.build_ski(kspec, kp, {"proj": kb["proj"].to(cuda_device)},
+                       x.to(cuda_device), 256, plan="sorted")
+    rng = np.random.default_rng(9)
+    V = torch.from_numpy(rng.standard_normal((x.shape[0], t)).astype(
+        np.float32)).to(cuda_device)
+    G = torch.from_numpy(rng.standard_normal((20, t, 256)).astype(
+        np.float32)).to(cuda_device)
+    U = ski.interp_transpose(st, V)
+    O = ski.interp_apply(st, G).sum(0).T
+    Uk = cuda_interp.interp_transpose_cuda(st.tfrac, V, 256)
+    Ok = cuda_interp.interp_apply_sum_cuda(st.tfrac, G)
+    torch.cuda.synchronize()
+    assert _rel(U, Uk) <= 2e-4 and _rel(O, Ok) <= 2e-4
+    st64 = ski.SKIState(*(None if f is None else
+                          (f.cpu().double() if f.is_floating_point()
+                           else f.cpu()) for f in st))
+    assert _rel(U, ski.interp_transpose(st64, V.cpu().double())) <= 1e-5
+    assert _rel(O, ski.interp_apply(st64, G.cpu().double()).sum(0).T) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_resume_on_the_card(cuda_device, tmp_path):
+    """train_with_checkpointing on CUDA params with a CUDA generator: 12
+    steps in one call against 6 and a resume to 12 (the resumed call is
+    handed a generator of another seed): the same losses and params bit
+    for bit."""
+    from rpagp_torch.train import train_with_checkpointing
+
+    rng = np.random.default_rng(12)
+    A = torch.from_numpy(rng.standard_normal((64, 8)).astype(
+        np.float32)).to(cuda_device)
+    p0 = {"w": torch.zeros(8, device=cuda_device),
+          "s": {"b": torch.ones((), device=cuda_device)}}
+
+    def loss(p, gen):
+        e = torch.randn(64, generator=gen, device=cuda_device)
+        return torch.mean((A @ p["w"] + p["s"]["b"] - e) ** 2)
+
+    def gen(seed):
+        return torch.Generator(device=cuda_device).manual_seed(seed)
+
+    full = train_with_checkpointing(loss, p0, str(tmp_path / "a"),
+                                    max_iters=12, checkpoint_every=3,
+                                    generator=gen(1))
+    d = str(tmp_path / "b")
+    train_with_checkpointing(loss, p0, d, max_iters=6, checkpoint_every=3,
+                             generator=gen(1))
+    res = train_with_checkpointing(loss, p0, d, max_iters=12,
+                                   checkpoint_every=3, generator=gen(2))
+    assert res.iterations == 6 and res.losses == full.losses
+    assert res.params["w"].device == p0["w"].device
+    assert torch.equal(res.params["w"], full.params["w"])
+    assert torch.equal(res.params["s"]["b"], full.params["s"]["b"])

@@ -14,6 +14,7 @@ variance rel <= 1e-5, covariance max-abs <= 1e-5 |cov|.
 """
 
 import dataclasses
+import importlib
 import math
 import os
 
@@ -32,7 +33,6 @@ from rpagp.models.exact_gp import ModelSpec as JModelSpec
 from rpagp.ops import iterative as jiter
 from rpagp.ops.kernels import KernelSpec as JKernelSpec
 from rpagp.utils import config as jconfig
-from rpagp_torch import mll as tmll
 from rpagp_torch import runner, train
 from rpagp_torch.models import exact_gp
 from rpagp_torch.models.exact_gp import ModelSpec
@@ -41,6 +41,9 @@ from rpagp_torch.ops.kernels import KernelSpec
 from rpagp_torch.utils import datasets
 from rpagp_torch.utils.config import load_spec
 from rpagp_torch.utils.convert import to_numpy, to_torch
+
+# the module (the package's `mll` is the function, as rpagp's is)
+tmll = importlib.import_module("rpagp_torch.mll")
 
 torch.set_num_threads(2)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -12,6 +12,7 @@ triangular solves in f32), the diagnostics' chosen levels rel <= 1e-6,
 train_fixed's losses rel <= 1e-5 and final params relerr <= 1e-4.
 """
 
+import importlib
 import inspect
 
 import jax
@@ -26,7 +27,6 @@ from rpagp.models import exact_gp as jgp
 from rpagp.models.exact_gp import ModelSpec as JModelSpec
 from rpagp.ops import grid_solve as jgs
 from rpagp.ops.kernels import KernelSpec as JKernelSpec
-from rpagp_torch import mll as tmll
 from rpagp_torch import train
 from rpagp_torch.models import exact_gp
 from rpagp_torch.models.exact_gp import ModelSpec
@@ -34,6 +34,9 @@ from rpagp_torch.ops import grid_solve
 from rpagp_torch.ops.kernels import KernelSpec
 from rpagp_torch.utils import convert
 from rpagp_torch.utils.convert import to_numpy, to_torch
+
+# the module (the package's `mll` is the function, as rpagp's is)
+tmll = importlib.import_module("rpagp_torch.mll")
 
 torch.set_num_threads(2)
 

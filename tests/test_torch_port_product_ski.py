@@ -17,6 +17,7 @@ solves in f32, as tests/test_torch_port_grid.py holds grid_posterior).
 """
 
 import dataclasses
+import importlib
 import math
 import os
 
@@ -31,7 +32,6 @@ from rpagp.models.exact_gp import ModelSpec as JModelSpec
 from rpagp.ops import grid_solve as jgs
 from rpagp.ops import ski_product as jsp
 from rpagp.ops.kernels import KernelSpec as JKernelSpec
-from rpagp_torch import mll as tmll
 from rpagp_torch import runner
 from rpagp_torch.models import exact_gp
 from rpagp_torch.models.exact_gp import ModelSpec
@@ -40,6 +40,9 @@ from rpagp_torch.ops.kernels import KernelSpec
 from rpagp_torch.utils import datasets
 from rpagp_torch.utils.config import load_spec
 from rpagp_torch.utils.convert import to_numpy, to_torch
+
+# the module (the package's `mll` is the function, as rpagp's is)
+tmll = importlib.import_module("rpagp_torch.mll")
 
 torch.set_num_threads(2)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
