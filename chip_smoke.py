@@ -37,7 +37,16 @@ ported path through rpagp_torch.runner.run_split at full size:
   train_with_checkpointing and its resume on rp_bbmm_elevators; the
   runner's --profile (a trace holding K1's kernel); the step-0 stall
   warning and the trainer's host reads. Each of its lines ends with the
-  card's name and power limit.
+  card's name and power limit;
+- phase 12, the parallel path (rpagp_torch/parallel/) on a NCCL process
+  group of one rank: the flagship grid spec through
+  run_split(distributed=True) at full size against phase 4 (K1, K2, K3),
+  the flagship with solver "bbmm" distributed (sharded_ski_mvm: K2, K3),
+  rp_bbmm_elevators distributed (ring_mvm: K4, K5), each distributed MLL
+  against the single-card one; svgp_m512's distributed epoch; and
+  `torchrun --nproc_per_node 1 -m rpagp_torch.runner --distributed` as a
+  subprocess (and the same without torchrun on 200,000 points). Its lines
+  end with the card's name and power limit too.
 
 Each phase prints its seconds.
 
@@ -809,6 +818,27 @@ def k2_on_split(tf, tf_test):
     say(4, "K3 t=1 in turns: " + ", ".join(f"{k} {v:.4f} ms" for k, v in turns))
 
 
+# phase 4's run_split of the flagship, for phase 12's distributed run
+_PHASE4 = {}
+
+
+def _run_split_losses(runner, *args, **kw):
+    """(runner.run_split(*args, **kw), its training losses): the losses
+    taken from the trainer's result as it returns."""
+    real, losses = runner.train_to_convergence, []
+
+    def trainer(*a, **k):
+        res = real(*a, **k)
+        losses.extend(res.losses)
+        return res
+
+    runner.train_to_convergence = trainer
+    try:
+        return runner.run_split(*args, **kw), losses
+    finally:
+        runner.train_to_convergence = real
+
+
 def phase4_main_path(results):
     import torch
 
@@ -836,7 +866,8 @@ def phase4_main_path(results):
     grid_solve.reset_stats()
     torch.cuda.reset_peak_memory_stats()
     timings = {}
-    m = runner.run_split(exp, split, seed=0, device=dev, timings=timings)
+    m, losses = _run_split_losses(runner, exp, split, seed=0, device=dev,
+                                  timings=timings)
     torch.cuda.synchronize()
     launches = {**cuda_chol.launches, **cuda_interp.launches}
     stats = dict(grid_solve.stats)
@@ -858,6 +889,7 @@ def phase4_main_path(results):
         check(v > 0, f"kernel {k} was not launched on the main path")
         results[k]["launches"] = v
         results[k].setdefault("launches_by_path", {})["grid"] = v
+    _PHASE4.update(losses=losses, rmse=m["rmse"])
     for k in ("rmse", "nll", "mll"):
         check(math.isfinite(m[k]), f"{k} not finite")
     check(m["rmse"] < 0.9, f"rmse {m['rmse']:.4f} >= 0.9: learned nothing")
@@ -2852,6 +2884,428 @@ def phase11e_stall_warning(say11):
           f"{sum(off.values())} times")
 
 
+def _fresh(params, grad=False):
+    """A detached copy of a params tree (leaves requiring grad if asked)."""
+    return {k: (_fresh(v, grad) if isinstance(v, dict)
+                else v.detach().clone().requires_grad_(grad))
+            for k, v in params.items()}
+
+
+def _value_grad(fn, params, assemble=None):
+    """(value, gradient leaves) of fn(p) at a fresh copy p of params;
+    assemble(leaves) runs between backward and the read (the parallel
+    path's gradient assembly)."""
+    from rpagp_torch.train import _leaves
+
+    p = _fresh(params, grad=True)
+    v = fn(p)
+    v.backward()
+    if assemble is not None:
+        assemble(_leaves(p))
+    return float(v.detach()), [t.grad for t in _leaves(p)]
+
+
+def _nccl_window(fn, calls):
+    """torch.profiler over `calls` calls of fn: (host-side collective
+    records a call {name: count}, device NCCL kernels a call {name:
+    count}, their device ms a call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    host, dev, ms = {}, {}, 0.0
+    for e in prof.key_averages():
+        key = e.key.lower()
+        if not any(w in key for w in ("nccl", "allreduce", "all_reduce")):
+            continue
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            dev[e.key] = e.count / calls
+            ms += e.self_device_time_total / 1e3 / calls
+        else:
+            host[e.key] = e.count / calls
+    return host, dev, ms
+
+
+def phase12_distributed(results):
+    """Phase 12, the parallel path (rpagp_torch/parallel/) on a NCCL
+    process group of one rank opened in this process on a FileStore in a
+    temp directory: (a) the flagship grid spec through
+    run_split(distributed=True) at full size, its distributed grid MLL at
+    the initial params against grid_mll, its losses beside phase 4's, its
+    steps timed and its collectives in a profiler window; (b) the flagship
+    spec with solver "bbmm" distributed (sharded_ski_mvm in every CG
+    iteration), its distributed MLL against the single-card SKI + BBMM MLL
+    on the same probes; (c) rp_bbmm_elevators distributed (ring_mvm, K4 /
+    K5), the same check; (d) svgp_m512: one distributed epoch against
+    train_svgp's, and the runner's distributed SVGP branch; (e) the CLI
+    as a subprocess, under torchrun with one rank and without torchrun.
+    The card has one GPU, so the world is one rank: NCCL gives each rank
+    its own card."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from rpagp_torch.parallel import multihost
+
+    card = _card_line()
+
+    def say12(msg):
+        say(12, f"{msg} [{card}]")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        multihost.initialize("cuda", store=dist.FileStore(
+            os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+        try:
+            check(dist.get_backend() == "nccl", "the group is not NCCL")
+            for part in (phase12a_grid, phase12b_ski_bbmm, phase12c_bbmm):
+                tp = time.perf_counter()
+                part(results, say12)
+                say12(f"{part.__name__} took {time.perf_counter() - tp:.1f} s")
+            tp = time.perf_counter()
+            phase12d_svgp(say12)
+            say12(f"phase12d_svgp took {time.perf_counter() - tp:.1f} s")
+        finally:
+            multihost.shutdown()
+        torch.cuda.empty_cache()
+        tp = time.perf_counter()
+        phase12e_cli(say12, tmp)
+        say12(f"phase12e_cli took {time.perf_counter() - tp:.1f} s")
+
+
+def phase12a_grid(results, say12):
+    import torch
+
+    from rpagp_torch import runner
+    from rpagp_torch.models import exact_gp
+    from rpagp_torch.ops import cuda_chol, cuda_interp, grid_solve
+    from rpagp_torch.parallel import sharding
+    from rpagp_torch.utils.config import load_spec
+
+    dev = torch.device("cuda")
+    counters = (cuda_chol.launches, cuda_interp.launches)
+    exp = load_spec(SPEC)
+    spec = exp.model
+    exp = dataclasses.replace(exp, train=dataclasses.replace(exp.train,
+                                                             max_iters=10))
+    split = _split("houseelectric")
+    mesh = sharding.make_mesh()
+    x = torch.as_tensor(split.train_x, device=dev)
+    y = torch.as_tensor(split.train_y, device=dev)
+    n = x.shape[0]
+    check(n == N_FLAGSHIP_TRAIN, "unexpected n_train")
+    xl, yl = sharding.shard_rows(x, mesh), sharding.shard_rows(y, mesh)
+    params, kbuf = exact_gp.init_model(spec, x.shape[1],
+                                       generator=torch.Generator()
+                                       .manual_seed(0), device=dev)
+
+    # the distributed grid MLL at the initial params against grid_mll
+    t0 = time.perf_counter()
+    state, S4, uy, u1, vc = sharding.prepare_distributed_grid(
+        spec, params, kbuf, xl, mesh, y_local=yl)
+    torch.cuda.synchronize()
+    t_prep = time.perf_counter() - t0
+    buffers = exact_gp.prepare_buffers(spec, params, kbuf, x, y_train=y)
+    vd, gd = _value_grad(
+        lambda p: sharding.distributed_grid_mll(spec, p, xl, yl, state, S4,
+                                                mesh, uy=uy, u1=u1, vc=vc),
+        params, lambda lv: sharding.assemble_grads(lv, mesh, data_mean=True))
+    vs, gs = _value_grad(lambda p: grid_solve.grid_mll(spec, p, buffers, x, y),
+                         params)
+    del buffers
+    erel, grel = abs(vd - vs) / abs(vs), _grad_relerr(gd, gs)
+    say12(f"(a) distributed_grid_mll at the initial params, flagship split "
+          f"(n {n}, p {S4.shape[0] * S4.shape[1]}): {vd:.8g} against "
+          f"grid_mll {vs:.8g}, value rel {erel:.2e}, gradient relerr "
+          f"{grel:.2e}; prepare_distributed_grid {t_prep:.2f} s")
+    check(erel <= 1e-5, f"distributed grid MLL value rel {erel:.2e} > 1e-5")
+    check(grel <= 1e-4, f"distributed grid MLL grad relerr {grel:.2e} > 1e-4")
+
+    if not _PHASE4:  # phase 12 driven without phase 4: its run_split here
+        m4, losses4 = _run_split_losses(runner, exp, split, seed=0,
+                                        device=dev)
+        _PHASE4.update(losses=losses4, rmse=m4["rmse"])
+    _zero(counters)
+    grid_solve.reset_stats()
+    timings = {}
+    m, losses = _run_split_losses(runner, exp, split, seed=0, device=dev,
+                                  timings=timings, distributed=True)
+    torch.cuda.synchronize()
+    launches = {k: v for c in counters for k, v in c.items()}
+    reads = grid_solve.stats["host_reads"]
+    lrel = max(abs(a - b) / abs(b) for a, b in zip(losses,
+                                                   _PHASE4["losses"]))
+    say12(f"(a) run_split(distributed=True), flagship, 10 steps: prepare "
+          f"{timings['prepare_s']:.2f} s, train {timings['train_s']:.2f} s, "
+          f"posterior {timings['posterior_s']:.2f} s; rmse {m['rmse']:.4f} "
+          f"(phase 4 {_PHASE4['rmse']:.4f}) nll {m['nll']:.4f} mll "
+          f"{m['mll']:.5f}; losses "
+          f"{', '.join(f'{v:.6f}' for v in losses)} against "
+          f"phase 4's {', '.join(f'{v:.6f}' for v in _PHASE4['losses'])} "
+          f"(largest rel {lrel:.2e}); grid host reads {reads}; launches "
+          f"{launches}")
+    for k in ("chol_linv", "chol_linv_batched", "interp_transpose",
+              "interp_apply_sum"):
+        check(launches[k] > 0, f"kernel {k} not launched on the distributed "
+              "grid path")
+        results[k].setdefault("launches_by_path", {})["grid_distributed"] = \
+            launches[k]
+    for k in ("rmse", "nll", "mll"):
+        check(math.isfinite(m[k]), f"{k} not finite")
+    check(m["rmse"] < 0.9, f"rmse {m['rmse']:.4f} >= 0.9: learned nothing")
+    check(len(losses) == len(_PHASE4["losses"]) and lrel <= 1e-5,
+          f"distributed losses depart from phase 4's by {lrel:.2e}")
+
+    # timed steps of the distributed step and its collectives
+    p = _fresh(params, grad=True)
+    from rpagp_torch.train import _leaves
+
+    opt = torch.optim.Adam(_leaves(p), lr=exp.train.lr)
+    step = sharding.make_distributed_train_step(spec, mesh, opt, n)
+    grid = (S4, uy, u1, vc)
+    events = []
+    for _ in range(6):  # the first is a warm-up
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        step(p, kbuf, xl, yl, ski_state=state, grid=grid)
+        e1.record()
+        events.append((e0, e1))
+    torch.cuda.synchronize()
+    step_ms = [a.elapsed_time(b) for a, b in events[1:]]
+    host, devk, nccl_ms = _nccl_window(
+        lambda: step(p, kbuf, xl, yl, ski_state=state, grid=grid), 3)
+    med = statistics.median(step_ms)
+    say12(f"(a) the distributed grid step: median {med:.2f} ms/step (all "
+          f"{', '.join(f'{v:.2f}' for v in step_ms)}; phase 4's single-card "
+          f"step in this run above); collectives a step (torch.profiler): "
+          f"host records {host}, NCCL kernels {devk} {nccl_ms:.4f} ms")
+    check(sum(host.values()) >= 1, "no collective ran in the distributed "
+          "step (the gradient all-reduce)")
+
+
+def phase12b_ski_bbmm(results, say12):
+    import torch
+
+    from rpagp_torch import runner
+    from rpagp_torch.models import exact_gp
+    from rpagp_torch.ops import cuda_interp, iterative
+    from rpagp_torch.ops.exact import LOG_2PI
+    from rpagp_torch.parallel import sharding
+    from rpagp_torch.utils.config import load_spec
+
+    dev = torch.device("cuda")
+    exp = load_spec(SPEC)
+    spec = dataclasses.replace(exp.model, solver="bbmm")
+    exp = dataclasses.replace(exp, model=spec, train=dataclasses.replace(
+        exp.train, max_iters=5))
+    split = _split("houseelectric")
+    mesh = sharding.make_mesh()
+    x = torch.as_tensor(split.train_x, device=dev)
+    y = torch.as_tensor(split.train_y, device=dev)
+    n, t = x.shape[0], spec.num_probes
+    _zero((cuda_interp.launches,))
+    timings = {}
+    m = runner.run_split(exp, split, seed=0, device=dev, timings=timings,
+                         distributed=True)
+    torch.cuda.synchronize()
+    launches = dict(cuda_interp.launches)
+    say12(f"(b) run_split(distributed=True), flagship spec solver bbmm, 5 "
+          f"steps (no preconditioner on the distributed SKI path, as the JAX "
+          f"package's): prepare {timings['prepare_s']:.2f} s, train "
+          f"{timings['train_s']:.2f} s ({m['iterations']} steps), posterior "
+          f"(LOVE rank {spec.love_rank}) {timings['posterior_s']:.2f} s; rmse "
+          f"{m['rmse']:.4f} nll {m['nll']:.4f}; launches {launches}")
+    for k in ("interp_transpose", "interp_apply_sum"):
+        check(launches[k] > 0, f"kernel {k} not launched on the distributed "
+              "SKI + BBMM path")
+        results[k].setdefault("launches_by_path",
+                              {})["ski_bbmm_distributed"] = launches[k]
+    check(math.isfinite(m["rmse"]) and math.isfinite(m["nll"]),
+          "SKI + BBMM distributed metrics not finite")
+
+    # the same probes: the distributed MLL against the single-card one
+    # (M = noise I on both: the distributed SKI path's estimator)
+    params, kbuf = exact_gp.init_model(spec, x.shape[1],
+                                       generator=torch.Generator()
+                                       .manual_seed(0), device=dev)
+    xl, yl = sharding.shard_rows(x, mesh), sharding.shard_rows(y, mesh)
+    st = sharding.prepare_distributed_ski(spec, params, kbuf, xl, mesh)
+    g2 = torch.Generator(device=dev).manual_seed(2)
+    eb = torch.randn(n, t, generator=g2, device=dev)
+    vd, gd = _value_grad(
+        lambda p: sharding.distributed_mll(spec, p, kbuf, xl, yl, eb, mesh,
+                                           ski_state_local=st),
+        params, lambda lv: sharding.assemble_grads(lv, mesh, data_mean=False))
+    spec1 = dataclasses.replace(spec, precond_rank=0)
+    b1 = {**kbuf, "ski_state": st}
+    es = torch.zeros(0, t, device=dev)
+
+    def single(p):
+        iq, ld = iterative.inv_quad_logdet_eps(spec1, p, b1, x, y, es, eb)
+        return -0.5 * (iq + ld + n * LOG_2PI)
+
+    vs, gs = _value_grad(single, params)
+    erel, grel = abs(vd - vs) / abs(vs), _grad_relerr(gd, gs)
+    say12(f"(b) distributed_mll (sharded_ski_mvm, cg {spec.cg_max_iters}, t "
+          f"{t}) against the single-card SKI + BBMM MLL on the same probes: "
+          f"{vd:.8g} against {vs:.8g}, value rel {erel:.2e}, gradient relerr "
+          f"{grel:.2e}")
+    check(erel <= 1e-4, f"SKI + BBMM distributed value rel {erel:.2e} > 1e-4")
+    check(grel <= 1e-3, f"SKI + BBMM distributed grad relerr {grel:.2e}")
+
+
+def phase12c_bbmm(results, say12):
+    import torch
+
+    from rpagp_torch import runner
+    from rpagp_torch.models import exact_gp
+    from rpagp_torch.ops import cuda_gram, iterative
+    from rpagp_torch.ops.exact import LOG_2PI
+    from rpagp_torch.parallel import sharding
+    from rpagp_torch.utils.config import load_spec
+
+    dev = torch.device("cuda")
+    exp = load_spec(SPEC_BBMM)
+    spec = exp.model
+    exp = dataclasses.replace(exp, train=dataclasses.replace(exp.train,
+                                                             max_iters=5))
+    split = _split("elevators")
+    mesh = sharding.make_mesh()
+    x = torch.as_tensor(split.train_x, device=dev)
+    y = torch.as_tensor(split.train_y, device=dev)
+    n, t = x.shape[0], spec.num_probes
+    _zero((cuda_gram.launches,))
+    timings = {}
+    m = runner.run_split(exp, split, seed=0, device=dev, timings=timings,
+                         distributed=True)
+    torch.cuda.synchronize()
+    launches = dict(cuda_gram.launches)
+    say12(f"(c) run_split(distributed=True), rp_bbmm_elevators, 5 steps: "
+          f"prepare {timings['prepare_s']:.3f} s, train "
+          f"{timings['train_s']:.2f} s ({m['iterations']} steps), posterior "
+          f"(LOVE rank {spec.love_rank}) {timings['posterior_s']:.2f} s; rmse "
+          f"{m['rmse']:.4f} nll {m['nll']:.4f}; launches {launches}")
+    for k in ("gram_mvm", "gram_mvm_bwd"):
+        check(launches[k] > 0, f"kernel {k} not launched on the distributed "
+              "BBMM path (ring_mvm)")
+        results[k].setdefault("launches_by_path",
+                              {})["bbmm_distributed"] = launches[k]
+    check(math.isfinite(m["rmse"]) and math.isfinite(m["nll"]),
+          "BBMM distributed metrics not finite")
+
+    params, kbuf = exact_gp.init_model(spec, x.shape[1],
+                                       generator=torch.Generator()
+                                       .manual_seed(0), device=dev)
+    xl, yl = sharding.shard_rows(x, mesh), sharding.shard_rows(y, mesh)
+    g2 = torch.Generator(device=dev).manual_seed(2)
+    es = torch.randn(spec.precond_rank, t, generator=g2, device=dev)
+    eb = torch.randn(n, t, generator=g2, device=dev)
+    Lp, Cs, ld = sharding._preconditioner_rows(spec, params, kbuf, x, mesh)
+    vd, gd = _value_grad(
+        lambda p: sharding.distributed_mll(
+            spec, p, kbuf, xl, yl, eb, mesh, pre_L_local=Lp,
+            pre_chol_small=Cs, pre_logdet=ld, eps_small=es),
+        params, lambda lv: sharding.assemble_grads(lv, mesh, data_mean=False))
+
+    def single(p):
+        iq, ldet = iterative.inv_quad_logdet_eps(spec, p, kbuf, x, y, es, eb)
+        return -0.5 * (iq + ldet + n * LOG_2PI)
+
+    vs, gs = _value_grad(single, params)
+    erel, grel = abs(vd - vs) / abs(vs), _grad_relerr(gd, gs)
+    say12(f"(c) distributed_mll (ring_mvm: K4, backward K5; rank-"
+          f"{spec.precond_rank} preconditioner) against the single-card BBMM "
+          f"MLL on the same probes: {vd:.8g} against {vs:.8g}, value rel "
+          f"{erel:.2e}, gradient relerr {grel:.2e}")
+    check(erel <= 1e-4, f"BBMM distributed value rel {erel:.2e} > 1e-4")
+    check(grel <= 1e-3, f"BBMM distributed grad relerr {grel:.2e} > 1e-3")
+
+
+def phase12d_svgp(say12):
+    import torch
+
+    from rpagp_torch import runner
+    from rpagp_torch.models import svgp
+    from rpagp_torch.parallel import sharding
+    from rpagp_torch.train import _leaves
+    from rpagp_torch.utils.config import load_spec
+
+    dev = torch.device("cuda")
+    exp = load_spec(SPEC_SVGP)
+    spec = exp.model
+    split = _split("elevators")
+    x = torch.as_tensor(split.train_x, device=dev)
+    y = torch.as_tensor(split.train_y, device=dev)
+    params, buffers = svgp.init_svgp_params(
+        spec, x, exp.num_inducing, generator=torch.Generator().manual_seed(0),
+        device=dev)
+    kw = dict(batch_size=exp.batch_size, num_epochs=1, lr=exp.train.lr)
+    t0 = time.perf_counter()
+    r1 = svgp.train_svgp(spec, params, buffers, x, y, generator=torch
+                         .Generator(device=dev).manual_seed(1), **kw)
+    t1 = time.perf_counter()
+    rd = svgp.train_svgp_distributed(
+        spec, params, buffers, x, y, sharding.make_mesh(),
+        generator=torch.Generator(device=dev).manual_seed(1), **kw)
+    t2 = time.perf_counter()
+    lrel = abs(rd.losses[0] - r1.losses[0]) / abs(r1.losses[0])
+    prel = _grad_relerr(_leaves(rd.params), _leaves(r1.params))
+    say12(f"(d) svgp_m512 on elevators, one epoch of {x.shape[0] // exp.batch_size} "
+          f"steps: train_svgp_distributed loss {rd.losses[0]:.8g} "
+          f"({t2 - t1:.3f} s) against train_svgp {r1.losses[0]:.8g} "
+          f"({t1 - t0:.3f} s), rel {lrel:.2e}; params relerr {prel:.2e}")
+    check(lrel <= 1e-5, f"distributed SVGP epoch loss rel {lrel:.2e}")
+    check(prel <= 1e-4, f"distributed SVGP params relerr {prel:.2e}")
+    exp1 = dataclasses.replace(exp, train=dataclasses.replace(exp.train,
+                                                              max_iters=10))
+    m = runner.run_split(exp1, split, seed=0, device=dev, distributed=True)
+    say12(f"(d) the runner's distributed SVGP branch, 1 epoch: rmse "
+          f"{m['rmse']:.4f} nll {m['nll']:.4f}")
+    check(m["iterations"] == 1 and math.isfinite(m["rmse"]),
+          f"distributed SVGP run_split: {m}")
+
+
+def phase12e_cli(say12, tmp):
+    """The runner's CLI with --distributed as a subprocess: under torchrun
+    with one rank on the full flagship split, then without torchrun (a
+    world of one in the process) on its first 200,000 points."""
+    import csv
+
+    args = ["-m", "rpagp_torch.runner", "--distributed", "--model_spec",
+            SPEC, "--datasets", "houseelectric", "--splits", "10",
+            "--max_splits", "1"]
+    torchrun = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc_per_node", "1"]
+    for label, cmd in (
+            ("torchrun --nproc_per_node 1 -m rpagp_torch.runner "
+             "--distributed", torchrun + args),
+            ("python -m rpagp_torch.runner --distributed --max_points "
+             "200000", [sys.executable] + args + ["--max_points", "200000"])):
+        out = os.path.join(tmp, "distributed.csv")
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd + ["--output", out], cwd=ROOT,
+                              capture_output=True, text=True, timeout=600)
+        took = time.perf_counter() - t0
+        check(proc.returncode == 0, f"{label} exited {proc.returncode}: "
+              f"{proc.stderr[-3000:]}")
+        with open(out) as f:
+            rows = list(csv.DictReader(f))
+        check(len(rows) == 1, f"{len(rows)} result rows")
+        row = rows[0]
+        say12(f"(e) {label}, the flagship spec (max_iters 100): {took:.1f} s "
+              f"in all; row: n_train {row['n_train']} rmse "
+              f"{float(row['rmse']):.4f} nll {float(row['nll']):.4f} "
+              f"iterations {row['iterations']} train "
+              f"{float(row['train_time_s']):.2f} s")
+        check(math.isfinite(float(row["rmse"])) and float(row["rmse"]) < 0.9,
+              f"{label}: row rmse {row['rmse']}")
+        os.remove(out)
+
+
 def main():
     import torch
 
@@ -2868,7 +3322,8 @@ def main():
             lambda: phase8_dense_main_path(results),
             lambda: phase9_ski_bbmm(results),
             lambda: phase10_product_ski_and_svgp(results),
-            phase11_single_card_surface)):
+            phase11_single_card_surface,
+            lambda: phase12_distributed(results))):
         tp = time.perf_counter()
         fn()
         say(phase, f"phase {phase} took {time.perf_counter() - tp:.1f} s")
@@ -2889,7 +3344,9 @@ def main():
     # launches: on the grid or BBMM path's run_split; launches_by_path:
     # on each path's run_split that launched the kernel (K1's leaf on the
     # grid, dense and product SKI paths, its ladder on the grid and product
-    # SKI paths, K2 and K3 on the grid and both SKI + BBMM runs)
+    # SKI paths, K2 and K3 on the grid and both SKI + BBMM runs; phase
+    # 12's distributed runs: K1-K3 on grid_distributed, K2 and K3 on
+    # ski_bbmm_distributed, K4 and K5 on bbmm_distributed)
     kernels = [{"name": k, "route": "cuda", "source": source[k],
                 "replaces": replaces[k], **{f: r[f] for f in keys},
                 "launches_by_path": r["launches_by_path"]}

@@ -22,12 +22,16 @@ each path runs written in CUDA (csrc/):
 - product SKI (ops/ski_product.py), lowered to the exact grid solver: K1
   on the factor Toeplitz ladder and the p x p factor's leaves;
 - SVGP (models/svgp.py): the whitened inducing-point ELBO and minibatch
-  training.
+  training;
+- the parallel layer (parallel/, on torch.distributed): row-sharded
+  training and posteriors over a process group on the grid, BBMM, SKI +
+  BBMM and SVGP paths (the runner's --distributed), with the same
+  kernels.
 Every spec in specs/ runs, on either SKI interpolation plan (the sorted
 one plain torch); train_with_checkpointing resumes training from its
 checkpoints (utils/checkpoint.py), utils/profiling.py traces a run and
-utils/results.py tabulates the runner's CSVs. See ROADMAP.md for the
-rest.
+utils/results.py tabulates the runner's CSVs. See ROADMAP.md for what
+is left.
 
 The public surface is the JAX package's: KernelSpec / ModelSpec,
 init_model / prepare_buffers / exact_mll / predict, mll / posterior /

@@ -16,6 +16,8 @@ M x M factor torch.linalg.cholesky_ex and the solve
 torch.linalg.solve_triangular, as the JAX package leaves them to XLA.
 Training makes no host read within an epoch: the shuffle is a device
 torch.randperm from a generator, and the epoch's mean loss is read once.
+`train_svgp_distributed` shards each minibatch's rows over a process
+group (parallel/sharding.py).
 """
 
 from __future__ import annotations
@@ -166,5 +168,35 @@ def train_svgp(spec: ModelSpec, params, buffers, x, y, generator=None,
                       x[take].reshape(steps, b, -1), y[take].reshape(steps, b),
                       n)
         losses.append(float(loss))
+    return SVGPTrainResult(params=_tree_map(lambda t: t.detach(), params),
+                           losses=losses)
+
+
+def train_svgp_distributed(spec: ModelSpec, params, buffers, x, y, mesh,
+                           generator=None, batch_size: int = 1024,
+                           num_epochs: int = 50, lr: float = 0.01):
+    """train_svgp with each minibatch's rows sharded over the mesh's data
+    axis (parallel/sharding.make_distributed_svgp_epoch): the M-sized
+    variational state replicates, the ELBO's likelihood rows shard. x, y:
+    the full training set, the same on every rank; `generator` must be
+    seeded alike on every rank, and then the permutations are
+    train_svgp's for the same generator, so the trajectories agree to
+    summation-order roundoff. The batch is trimmed to a multiple of the
+    data axis."""
+    from ..parallel import sharding
+
+    n = x.shape[0]
+    b = min(batch_size, n)
+    b -= b % mesh.data
+    if b <= 0:
+        raise ValueError(f"batch_size {batch_size} < data axis {mesh.data}")
+    steps = max(1, n // b)
+    params = _tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                       params)
+    opt = torch.optim.Adam(_leaves(params), lr=lr)
+    epoch = sharding.make_distributed_svgp_epoch(spec, mesh, opt, n_total=n,
+                                                 steps=steps, batch=b)
+    losses = [float(epoch(params, buffers, x, y, generator))
+              for _ in range(num_epochs)]
     return SVGPTrainResult(params=_tree_map(lambda t: t.detach(), params),
                            losses=losses)

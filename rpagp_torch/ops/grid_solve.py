@@ -307,12 +307,14 @@ def _grid_chol_G(spec: ModelSpec, kparams, state: ski.SKIState):
     return G, eps_t / torch.clamp(eps0, min=1e-30)
 
 
-def _factor_diag(spec: ModelSpec, kparams, state: ski.SKIState, S4, noise):
+def _factor_diag(spec: ModelSpec, kparams, state: ski.SKIState, S4, noise,
+                 chol_fn=None):
     """(G, Lc, diag): the Toeplitz factors, the p x p factor of
     C = noise I + G^T S G, and the jitters the two ladders chose:
     diag["t_jitter_mult"] (J,) in units of the base grid jitter (1.0 = the
     base level), diag["c_jitter_over_noise"] () in units of noise (0.0 =
-    exact)."""
+    exact). chol_fn(C, noise) -> (Lc, eps) replaces the p x p factor's
+    ladder (the parallel path's row-banded one, parallel/dist_chol.py)."""
     G, t_mult = _grid_chol_G(spec, kparams, state)
     J, M = G.shape[0], G.shape[1]
     p = J * M
@@ -323,17 +325,19 @@ def _factor_diag(spec: ModelSpec, kparams, state: ski.SKIState, S4, noise):
     Sg = torch.bmm(G.transpose(1, 2), SG_i).reshape(p, p)
     Sg = 0.5 * (Sg + Sg.T)  # rounding hygiene: the leaf VJP needs symmetry
     C = Sg + noise * torch.eye(p, dtype=Sg.dtype, device=Sg.device)
-    Lc, eps_c = _chol_with_fallback_eps(C, noise)
+    Lc, eps_c = (chol_fn or _chol_with_fallback_eps)(C, noise)
     diag = {"t_jitter_mult": t_mult.detach(),
             "c_jitter_over_noise": (eps_c.detach()
                                     / torch.clamp(noise.detach(), min=1e-30))}
     return G, Lc, diag
 
 
-def _factor(spec: ModelSpec, kparams, state: ski.SKIState, S4, noise):
+def _factor(spec: ModelSpec, kparams, state: ski.SKIState, S4, noise,
+            chol_fn=None):
     """(G, Lc) of _factor_diag; its diagnostics go to stats["t_levels"] /
     stats["c_level"]."""
-    G, Lc, diag = _factor_diag(spec, kparams, state, S4, noise)
+    G, Lc, diag = _factor_diag(spec, kparams, state, S4, noise,
+                               chol_fn=chol_fn)
     stats["t_levels"] = diag["t_jitter_mult"]
     stats["c_level"] = diag["c_jitter_over_noise"]
     return G, Lc

@@ -9,8 +9,9 @@ one cross-kernel MVM:
 
 Lanczos runs with full reorthogonalization and restarts on breakdown.
 The start vector is the centered y, the Krylov space CG explores for the
-mean solve. The row-sharded SPMD form of `lanczos` (the JAX package's
-`rsum`) is ROADMAP slice 12.
+mean solve. With `rsum` (a psum over the data axis) `lanczos` runs on the
+local rows of a row-sharded operator: the parallel path's sharded LOVE
+(parallel/sharding.distributed_posterior).
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ class LoveCache(NamedTuple):
 
 
 @torch.no_grad()
-def lanczos(A_mvm: Callable, v0, rank: int, fresh=None):
+def lanczos(A_mvm: Callable, v0, rank: int, fresh=None, rsum=None):
     """Lanczos tridiagonalization of the SPD operator A with full
     reorthogonalization and breakdown restarts; returns (Q (n, r), T (r, r)).
 
@@ -40,17 +41,28 @@ def lanczos(A_mvm: Callable, v0, rank: int, fresh=None):
     the whole basis, and the connecting beta is 0. fresh=None draws the
     table from a generator of v0's device seeded 0 (the JAX package draws
     it from key 0; the streams differ, so tests pass the same table to
-    both)."""
+    both).
+
+    Row-sharded mode: v0 holds this rank's rows of the start vector and
+    A_mvm maps local rows to local rows; `rsum` (a psum over the data
+    axis) reduces every row-space contraction (Q^T v, q . v, the norms),
+    and `fresh` is this rank's (rank, n_local) columns of one global
+    table, so every rank restarts alike. Q comes back row-local, T
+    replicated."""
     n = v0.shape[0]
-    q = v0 / torch.linalg.norm(v0)
+    if rsum is None:
+        rsum, nrm = (lambda s: s), torch.linalg.norm
+    else:
+        nrm = lambda v: torch.sqrt(rsum(torch.sum(v * v)))
+    q = v0 / nrm(v0)
     if fresh is None:
         gen = torch.Generator(device=v0.device).manual_seed(0)
         fresh = torch.randn(rank, n, generator=gen, dtype=v0.dtype,
                             device=v0.device)
 
     def orth(Q, v):
-        v = v - Q @ (Q.T @ v)
-        return v - Q @ (Q.T @ v)  # twice is enough (Parlett)
+        v = v - Q @ rsum(Q.T @ v)
+        return v - Q @ rsum(Q.T @ v)  # twice is enough (Parlett)
 
     Q = torch.zeros(n, rank, dtype=v0.dtype, device=v0.device)
     beta_prev = v0.new_zeros(())
@@ -58,14 +70,14 @@ def lanczos(A_mvm: Callable, v0, rank: int, fresh=None):
     alphas, betas = [], []
     for i in range(rank):
         v = A_mvm(q[:, None])[:, 0]
-        alpha = q @ v
+        alpha = rsum(q @ v)
         v = v - alpha * q - beta_prev * q_prev
         Q[:, i] = q  # columns past i are still zero
         v = orth(Q, v)
-        beta = torch.linalg.norm(v)
+        beta = nrm(v)
         broke = beta < 1e-6
         r = orth(Q, fresh[i])
-        r = r / torch.clamp(torch.linalg.norm(r), min=1e-20)
+        r = r / torch.clamp(nrm(r), min=1e-20)
         q_next = torch.where(broke, r,
                              v / torch.where(broke, torch.ones_like(beta), beta))
         beta_out = torch.where(broke, torch.zeros_like(beta), beta)
@@ -79,16 +91,20 @@ def lanczos(A_mvm: Callable, v0, rank: int, fresh=None):
 
 @torch.no_grad()
 def build_love_cache(A_mvm: Callable, y_centered, noise, rank: int,
-                     alpha=None, fresh=None) -> LoveCache:
+                     alpha=None, fresh=None, rsum=None) -> LoveCache:
     """Lanczos cache plus mean cache; `alpha` (A^{-1} y_c) may come from
-    the CG mean solve. fresh: see `lanczos`."""
-    Q, T = lanczos(A_mvm, y_centered, rank, fresh=fresh)
+    the CG mean solve. fresh, rsum: see `lanczos` (row-sharded mode: Q
+    and alpha come back row-local)."""
+    Q, T = lanczos(A_mvm, y_centered, rank, fresh=fresh, rsum=rsum)
     # T is similar to A restricted to the Krylov space: SPD; jitter for f32
     T = T + 1e-6 * torch.eye(T.shape[0], dtype=T.dtype, device=T.device)
     T_chol = cholesky_nan(T)
     if alpha is None:
         # A^{-1} y ~= Q T^{-1} Q^T y (exact when Lanczos ran to grade)
-        alpha = Q @ cho_solve(T_chol, (Q.T @ y_centered)[:, None])[:, 0]
+        qty = Q.T @ y_centered
+        if rsum is not None:
+            qty = rsum(qty)
+        alpha = Q @ cho_solve(T_chol, qty[:, None])[:, 0]
     return LoveCache(Q=Q, T_chol=T_chol, alpha=alpha, noise=noise)
 
 

@@ -113,6 +113,7 @@ def train_to_convergence(
     sync_every: int = 1,
     generator=None,
     args_refresh=None,
+    grad_hook=None,
 ) -> TrainResult:
     """Adam to convergence with patience stopping on the best loss seen:
     stop when the loss has not improved by `rel_tol` for `patience`
@@ -136,7 +137,11 @@ def train_to_convergence(
 
     After step 0 (only), one host read checks that some parameter moved,
     and a `[warn] training stalled at step 0` line goes to stderr if none
-    did (_warn_if_frozen)."""
+    did (_warn_if_frozen).
+
+    grad_hook: optional fn(leaves), run after each backward and before the
+    optimizer step (the parallel path's gradient assembly,
+    parallel/sharding.make_distributed_loss)."""
     params = _tree_map(lambda t: t.detach().clone().requires_grad_(True),
                        params)
     opt, sched = make_optimizer(train_config, _leaves(params))
@@ -160,6 +165,8 @@ def train_to_convergence(
         opt.zero_grad(set_to_none=True)
         loss = loss_fn(params, *loss_args, *extra)
         loss.backward()
+        if grad_hook is not None:
+            grad_hook(_leaves(params))
         opt.step()
         sched.step()
         if i == 0:

@@ -7,6 +7,10 @@ NamedTuples of the same fields. `to_torch` takes the JAX trees as numpy
 arrays (for example after jax.device_get) and returns the port's;
 `to_numpy` goes back, which is how gradients are compared. RNG streams do not port, so
 the tests hand both packages the same projections this way.
+`local_rows` slices a global array into one rank's rows as the JAX
+package's `shard_rows` lays them out over a mesh's data axis, so a
+rank of the parallel path takes the reference's sharded inputs (its
+probe normals, its LOVE restart table) from the global numpy array.
 """
 
 from __future__ import annotations
@@ -48,3 +52,17 @@ def to_numpy(tree):
     if isinstance(tree, dict):
         return {k: to_numpy(v) for k, v in tree.items()}
     return tree.detach().cpu().numpy()
+
+
+def local_rows(arr, index: int, count: int, axis: int = 0):
+    """Block `index` of `count` equal contiguous blocks of `arr` along
+    `axis`: the rows device `index` of a data axis of `count` holds under
+    the JAX package's P("data") layout (P(None, "data") with axis=1).
+    Works on numpy arrays and tensors alike; the axis must divide."""
+    n = arr.shape[axis]
+    if n % count:
+        raise ValueError(f"{n} rows do not divide into {count} shards")
+    b = n // count
+    sl = [slice(None)] * arr.ndim
+    sl[axis] = slice(index * b, (index + 1) * b)
+    return arr[tuple(sl)]

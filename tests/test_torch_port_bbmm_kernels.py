@@ -295,6 +295,15 @@ m = runner.run_split(sorted_exp, split, seed=0, device="cpu")
 assert m["rmse"] == m["rmse"] and m["nll"] == m["nll"], m
 from rpagp_torch.train import train_with_checkpointing
 from rpagp_torch.utils import checkpoint, profiling, results
+# the parallel layer: a world of one over gloo, the distributed grid MLL
+# through run_split(distributed=True), then the process group torn down
+from rpagp_torch.parallel import comm, dist_chol, launch, multihost, sharding
+grid_exp = dataclasses.replace(exp, model=dataclasses.replace(
+    model, kernel=KernelSpec.polynomial(J=3, ski=True, grid_size=16)))
+m = runner.run_split(grid_exp, split, seed=0, device="cpu", distributed=True)
+assert m["rmse"] == m["rmse"] and m["nll"] == m["nll"], m
+assert sharding.make_mesh().world == 1
+multihost.shutdown()
 root = os.path.abspath("rpagp") + os.sep
 bad = sorted(k for k, mod in list(sys.modules.items())
              if k == "jax" or k.startswith("jax.") or k == "rpagp"
@@ -306,10 +315,11 @@ print("BAD", bad)
 
 def test_port_imports_nothing_of_jax():
     """A fresh process imports rpagp_torch and runs small CPU splits on the
-    BBMM, SKI + BBMM (both interp plans), product SKI and SVGP paths and
-    imports the checkpoint, profiling and results utilities; afterwards no
-    jax module, no rpagp module and no module loaded from a file under
-    rpagp/ is in sys.modules."""
+    BBMM, SKI + BBMM (both interp plans), product SKI and SVGP paths,
+    imports the checkpoint, profiling and results utilities and the
+    parallel layer, and runs the distributed grid MLL in a world of one
+    over gloo; afterwards no jax module, no rpagp module and no module
+    loaded from a file under rpagp/ is in sys.modules."""
     proc = subprocess.run([sys.executable, "-c", _NO_JAX_SCRIPT], cwd=ROOT,
                           capture_output=True, text=True, timeout=300,
                           env={**os.environ, "OMP_NUM_THREADS": "2"})

@@ -880,3 +880,60 @@ def test_resume_on_the_card(cuda_device, tmp_path):
     assert res.params["w"].device == p0["w"].device
     assert torch.equal(res.params["w"], full.params["w"])
     assert torch.equal(res.params["s"]["b"], full.params["s"]["b"])
+
+
+@pytest.mark.cuda
+def test_nccl_world_of_one_grid_mll_matches_single_card(cuda_device):
+    """distributed_grid_mll over a NCCL process group of one rank (opened
+    in this process) against grid_mll on the same card, at the initial
+    params of a small grid spec: value rel <= 1e-5, gradient relerr <= 1e-4
+    (the reference's tests/test_grid_sharding.py bars)."""
+    import torch.distributed as dist
+
+    from rpagp_torch.models import exact_gp
+    from rpagp_torch.models.exact_gp import ModelSpec
+    from rpagp_torch.ops import grid_solve
+    from rpagp_torch.ops.kernels import KernelSpec
+    from rpagp_torch.parallel import multihost, sharding
+    from rpagp_torch.train import _leaves
+
+    if dist.is_initialized():
+        pytest.skip("a process group is already open in this process")
+    spec = ModelSpec(kernel=KernelSpec.polynomial(J=4, ski=True,
+                                                  grid_size=64))
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((4096, 6)).astype(np.float32))
+    y = torch.sin(2.0 * x[:, 0]) + 0.3 * torch.from_numpy(
+        rng.standard_normal(4096).astype(np.float32))
+    x, y = x.to(cuda_device), y.to(cuda_device)
+    params, kbuf = exact_gp.init_model(spec, 6, generator=torch.Generator()
+                                       .manual_seed(0), device=cuda_device)
+    multihost.initialize("cuda")
+    try:
+        mesh = sharding.make_mesh()
+        assert dist.get_backend() == "nccl" and mesh.world == 1
+        state, S4, uy, u1, vc = sharding.prepare_distributed_grid(
+            spec, params, kbuf, x, mesh, y_local=y)
+        buffers = exact_gp.prepare_buffers(spec, params, kbuf, x, y_train=y)
+        out = []
+        for dist_path in (True, False):
+            p = {k: ({kk: vv.clone().requires_grad_(True)
+                      for kk, vv in v.items()} if isinstance(v, dict)
+                     else v.clone().requires_grad_(True))
+                 for k, v in params.items()}
+            if dist_path:
+                v = sharding.distributed_grid_mll(spec, p, x, y, state, S4,
+                                                  mesh, uy=uy, u1=u1, vc=vc)
+            else:
+                v = grid_solve.grid_mll(spec, p, buffers, x, y)
+            v.backward()
+            if dist_path:
+                sharding.assemble_grads(_leaves(p), mesh)
+            out.append((float(v.detach()), [t.grad for t in _leaves(p)]))
+    finally:
+        multihost.shutdown()
+    (vd, gd), (vs, gs) = out
+    assert abs(vd - vs) <= 1e-5 * abs(vs)
+    num = sum(float(((a - b).double() ** 2).sum()) for a, b in zip(gd, gs))
+    den = sum(float((b.double() ** 2).sum()) for b in gs)
+    assert math.sqrt(num / den) <= 1e-4
