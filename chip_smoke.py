@@ -6,9 +6,12 @@ ported path through rpagp_torch.runner.run_split at full size:
   its two entry points, the 512 leaf and the (20, 256, 256) ladder batch;
   K2, K3), phases 2-4; K1 is also held bit for bit against the one-block
   kernel, on random matrices, at every level of the flagship's jitter
-  ladder and on the flagship's C-factor leaves; K2 is held and timed on
-  uniform points (phase 2) and on the flagship split's own tfrac (phase
-  4), beside a scatter of precomputed taps by `index_add_`; K3 on uniform
+  ladder and on the flagship's C-factor leaves; K2 (one launch a call at
+  any width) is held and timed through its C entry on uniform points at
+  t = 1, 8, 11 (phase 2) and on the flagship split's own tfrac at t = 1,
+  2, 8, 9, 512 and 513 (phase 4: prepare, the posterior, every SKI + BBMM
+  CG iteration, the LOVE cross MVMs), beside cuSPARSE's SpMM of a CSR W^T
+  and a scatter of precomputed taps by `index_add_`; K3 on uniform
   points at t = 1, 8 and 11 (phase 2) and on the split's tfrac and test
   tfrac (phase 4), beside `embedding_bag` over precomputed taps;
 - the BBMM dense path on elevators (K4, K5), phases 5-7; phase 5 also
@@ -18,7 +21,8 @@ ported path through rpagp_torch.runner.run_split at full size:
   K + s^2 I) on rp_poly_j20 / sml, phase 8, then every other dense spec
   briefly;
 - SKI + BBMM (K2 and K3 in every CG iteration and backward), phase 9:
-  rp_poly_j20_ski on sml (m = 512, t = 11; its CUDA MLL against the CPU
+  rp_poly_j20_ski on sml (m = 512, t = 11, K2 held with padding and points
+  beyond the grid; its CUDA MLL against the CPU
   one, and against the exact grid solver forced at p = 10,240 with K1's
   (20, 512, 512) ladder batch), then the flagship spec with
   solver="bbmm" at n = 1.84M (the cached preconditioner, LOVE at rank
@@ -101,6 +105,13 @@ K1_BATCH_BEFORE_MS = "0.660-0.663"
 # thread walked every staged point), t = 1 at the flagship shape, PERF.md
 # section 6, NVIDIA H100 80GB HBM3, 700.00 W
 K2_BEFORE_MS = "14.303-14.373"
+# K2's times before it carried many columns a pass (one column a pass at
+# m >= 256, launches of 8 columns) on the flagship split's tfrac, PERF.md
+# section 6, NVIDIA H100 80GB HBM3, 700.00 W: t = 1, 9 (the SKI + BBMM
+# step's range) and 512
+K2_BEFORE_T1_MS = "0.2164"
+K2_T9_BEFORE_MS = "2.088-2.099"
+K2_T512_BEFORE_MS = "138.28"
 # K3's time before its redesign (one thread a point, its taps gathered
 # from G through L1), t = 1 at the flagship shape, PERF.md section 6,
 # NVIDIA H100 80GB HBM3, 700.00 W
@@ -208,12 +219,13 @@ def phase1_build():
            f"(nvcc {_build.build_seconds} s) -> "
            f"{os.path.relpath(_build.library_path(), ROOT)}")
     with open(_build.library_path()[:-3] + ".log") as f:
-        usage = ptxas_usage(f.read(), ("transpose_partial_kernel",
+        usage = ptxas_usage(f.read(), ("transpose_own_kernel",
+                                       "transpose_slots_kernel",
                                        "apply_sum_shifted_kernel",
                                        "apply_sum_rows_kernel",
                                        "gram_mvm_bwd_kernel"))
-    say(1, "ptxas -v (K2 <columns>, K3 shifted <vec> and rows, K5 <base, "
-           "columns>): "
+    say(1, "ptxas -v (K2 one-column and <slots>, K3 shifted <vec> and rows, "
+           "K5 <base, columns>): "
            + "; ".join(f"{k} {v}" for k, v in sorted(usage.items())))
 
 
@@ -473,7 +485,7 @@ def phase2_kernels(results):
         check(torch.equal(U2, U), "K2 padding contributes")
         U3 = cuda_interp.interp_transpose_cuda(tf, V, m)
         check(torch.equal(U3, U), "K2 not deterministic")
-        ms_t = cuda_ms(lambda: cuda_interp.interp_transpose_cuda(tf, V, m))
+        ms_t, _ = k2_c_entry_ms(tf, V, m, iters=20)
         pms_t = cuda_ms(lambda: cuda_interp.interp_transpose_plain(tf, V, m),
                         iters=2)
         ms_a = cuda_ms(lambda: cuda_interp.interp_apply_sum_cuda(tf, G),
@@ -496,9 +508,13 @@ def phase2_kernels(results):
             say(2, f"K3 t=1 yardstick: embedding_bag over the taps "
                    f"precomputed outside the timed call (not the same "
                    f"function) {lms:.4f} ms, rel vs plain {erel:.2e}")
+            yard = k2_yardsticks(tf, V, m, Up)
+            say(2, "K2 t=1 yardsticks, built outside the timed call: "
+                   + ", ".join(f"{k} {v[0]:.4f} ms (rel {v[1]:.1e})"
+                               for k, v in yard.items()))
             results["interp_transpose"] = dict(
                 max_abs_err=max_abs(U, Up), ms=ms_t, plain_ms=pms_t,
-                bound_ms=bms, bound_by=bby, library_ms=None)
+                bound_ms=bms, bound_by=bby, library_ms=yard["sparse.mm"][0])
             results["interp_apply_sum"] = dict(
                 max_abs_err=max_abs(O, Op), ms=ms_a, plain_ms=pms_a,
                 bound_ms=bms, bound_by=bby, library_ms=lms)
@@ -663,20 +679,69 @@ def _taps(tf, m):
     return w, cells, kept
 
 
-def _taps_flat(tf, V, m):
-    """The weighted taps of K2 as a scatter: flat indices (j t + k) m + cell
-    and values w_d V[i, k] of every kept tap."""
+def k2_c_entry_ms(tf, V, m, iters):
+    """K2's ms by CUDA events through its C entry, the wrapper's chunk,
+    scratch and output allocated outside the timed calls (these launches
+    are not counted), and the output of the last call."""
+    import torch
+
+    from rpagp_torch.ops import _build, cuda_interp
+
+    J, n = tf.shape
+    t = V.shape[1]
+    chunk = cuda_interp.transpose_chunk(J, n, t, m)
+    part = torch.empty(-(-n // chunk) * J * t * m, device=tf.device)
+    U = torch.empty(J, t, m, device=tf.device)
+    lib, stream = _build.lib(), _build.stream_ptr(tf.device)
+
+    def call():
+        err = lib.rpagp_interp_transpose(
+            tf.data_ptr(), V.data_ptr(), part.data_ptr(), U.data_ptr(), J, n,
+            t, m, chunk, stream)
+        check(err == 0, f"K2's C entry refused the call: {err}")
+
+    return cuda_ms(call, iters=iters), U
+
+
+def k2_yardsticks(tf, V, m, plain, scatter=True):
+    """K2's library yardsticks on the same inputs, each built outside the
+    timed call: torch.sparse.mm (cuSPARSE SpMM) of W^T as a CSR matrix
+    (J m, n) times V, the same function once W is built; and, where its
+    taps fit on the card (scatter=True), index_add_ of the taps' products
+    w V[i] (kept taps, t) into (J m, t) (atomics, not the same function).
+    Returns {name: (ms, rel against the plain version's `plain`)}."""
     import torch
 
     J, n = tf.shape
     t = V.shape[1]
+    iters = 3 if t >= 512 else 10
     w, cells, kept = _taps(tf, m)
-    jj = torch.arange(J, device=tf.device)[:, None, None]
-    idx, vals = [], []
-    for k in range(t):
-        idx.append(((jj * t + k) * m + cells)[kept])
-        vals.append((w * V[:, k][None, :, None])[kept])
-    return torch.cat(idx), torch.cat(vals)
+    dev = tf.device
+    rows = (torch.arange(J, device=dev)[:, None, None] * m + cells)[kept]
+    cols = torch.arange(n, device=dev)[None, :, None].expand(J, n, 4)[kept]
+    vals = w[kept]
+    del w, cells, kept
+    W = torch.sparse_coo_tensor(torch.stack([rows, cols]), vals, (J * m, n),
+                                check_invariants=False
+                                ).coalesce().to_sparse_csr()
+
+    def spmm():
+        return torch.sparse.mm(W, V)
+
+    out = {"sparse.mm": (cuda_ms(spmm, iters=iters),
+                         rel(spmm().view(J, m, t).transpose(1, 2), plain))}
+    del W
+    if scatter:
+        src = vals[:, None] * V[cols]
+        acc = torch.zeros(J * m, t, device=dev)
+
+        def add():
+            return acc.zero_().index_add_(0, rows, src)
+
+        out["index_add_"] = (cuda_ms(add, iters=iters),
+                             rel(add().view(J, m, t).transpose(1, 2), plain))
+        del src, acc
+    return out
 
 
 def embedding_bag_ms(tf, G, plain):
@@ -705,15 +770,18 @@ def embedding_bag_ms(tf, G, plain):
     return cuda_ms(bag, iters=10), e
 
 
-def k2_on_split(tf, tf_test):
+def k2_on_split(tf, tf_test, results):
     """K2 on the flagship split's own tfrac (projected data crowding the
-    grid's middle, unlike phase 2's uniform points) at the path's widths,
-    t = 2 (prepare's U^T [y, 1]) and t = 1 (the posterior), and at t = 8:
-    rel vs plain, bit-for-bit repeats, the K2/K3 adjoint, padding; timed
-    beside a scatter of the same taps precomputed outside the timed call
-    (`index_add_`, atomics: not the same function). Then K3 at t = 1 on the
-    split's tfrac and on its test tfrac (n_test), beside `embedding_bag`
-    over precomputed taps (not the same function either)."""
+    grid's middle, unlike phase 2's uniform points) at the paths' widths:
+    t = 2 (prepare's U^T [y, 1]), 1 (the posterior), 8, 9 (every SKI +
+    BBMM CG iteration, the flagship's 8 probes and y) and 512, 513 (the
+    LOVE posterior's cross MVMs at love_rank, love_rank + 1): rel vs plain,
+    bit-for-bit repeats, the K2/K3 adjoint, padding and points far beyond
+    the grid adding nothing; timed by CUDA events through the C entry
+    beside the bound and, at t = 1, 9 and 512, the library yardsticks
+    (`k2_yardsticks`; index_add_'s taps do not fit at t = 512). Then K3 at
+    t = 1 on the split's tfrac and on its test tfrac (n_test), beside
+    `embedding_bag` over precomputed taps (not the same function)."""
     import torch
 
     from rpagp_torch.ops import cuda_interp
@@ -726,10 +794,16 @@ def k2_on_split(tf, tf_test):
     say(4, f"the split's tfrac (J={J}, n={n}): component 0's busiest cell "
            f"holds {int(occupied.max())} points ({100 * float(occupied.max()) / n:.2f}%), "
            f"its 16 busiest {100 * float(occupied.sort().values[-16:].sum()) / n:.1f}%")
-    for t in (2, 1, 8):
+    beyond = torch.tensor([-1e6, -1e4, -50.0, -3.0, -2.001, m + 1.001,
+                           m + 1.5, m + 7.0, m + 1e4, 1e6], device=tf.device)
+    by_width = results["interp_transpose"].setdefault("on_split", {})
+    for t in (2, 1, 8, 9, 512, 513):
         V = torch.randn(n, t, generator=gen).to(tf.device)
         G = torch.randn(J, t, m, generator=gen).to(tf.device)
+        before = cuda_interp.launches["interp_transpose"]
         U = cuda_interp.interp_transpose_cuda(tf, V, m)
+        check(cuda_interp.launches["interp_transpose"] - before == 1,
+              f"K2 at t={t}: not one launch")
         Up = cuda_interp.interp_transpose_plain(tf, V, m)
         O = cuda_interp.interp_apply_sum_cuda(tf, G)
         torch.cuda.synchronize()
@@ -741,30 +815,41 @@ def k2_on_split(tf, tf_test):
                   - float(torch.sum(V.double() * O.double()))) / float(
             torch.linalg.norm(U.double()) * torch.linalg.norm(G.double()))
         check(adj <= 1e-5, f"K2/K3 adjoint on the split's tfrac {adj:.2e}")
+        del O, G
         tfp, Vp = tf.clone(), V.clone()
         tfp[:, -1000:] = -100.0
+        tfp[:, 100:110] = beyond
         Vp[-1000:] = 1e6
+        Vp[100:110] = 1e6
         check(torch.equal(cuda_interp.interp_transpose_cuda(tfp, Vp, m),
                           cuda_interp.interp_transpose_cuda(tfp, V, m)),
-              "K2 padding contributes on the split's tfrac")
-        ms = cuda_ms(lambda: cuda_interp.interp_transpose_cuda(tf, V, m),
-                     iters=20)
-        line = (f"K2 on the split's tfrac t={t}: rel {e:.2e}, repeats bit for "
-                f"bit, adjoint {adj:.1e}, padding exact; {ms:.4f} ms")
-        if t <= 2:
-            idx, vals = _taps_flat(tf, V, m)
-            out = torch.zeros(J * t * m, device=tf.device)
-
-            def scatter():
-                return out.zero_().index_add_(0, idx, vals)
-
-            es = rel(scatter().view(J, t, m), Up)
-            sms = cuda_ms(scatter, iters=10)
-            line += (f"; scatter of {idx.numel()} precomputed taps by "
-                     f"index_add_ (atomics, not the same function) {sms:.4f}"
-                     f" ms, rel {es:.2e}")
-            del idx, vals
+              f"K2 t={t}: padding or points beyond the grid contribute on "
+              f"the split's tfrac")
+        del tfp, Vp
+        ms, Uc = k2_c_entry_ms(tf, V, m, iters=3 if t >= 512 else 20)
+        check(torch.equal(Uc, U), f"K2 t={t}: the C entry differs from the "
+                                  f"wrapper")
+        bms, bby, _ = bound(4 * (J * n + n * t + J * t * m),
+                            flops=2 * 4 * J * n * t)
+        before_ms = {1: K2_BEFORE_T1_MS, 9: K2_T9_BEFORE_MS,
+                     512: K2_T512_BEFORE_MS}.get(t)
+        line = (f"K2 on the split's tfrac t={t} (one launch): rel {e:.2e}, "
+                f"repeats bit for bit, adjoint {adj:.1e}, padding and 10 "
+                f"points beyond the grid exact; {ms:.4f} ms (C entry), bound "
+                f"{bms:.4f} ms ({bby})"
+                + (f"; the kernel before this design {before_ms} ms, PERF.md"
+                   if before_ms else ""))
+        row = dict(ms=ms, bound_ms=bms, bound_by=bby, max_abs_err=max_abs(U, Up))
+        if t in (1, 9, 512):
+            yard = k2_yardsticks(tf, V, m, Up, scatter=t < 512)
+            line += "; " + ", ".join(
+                f"{k} {v[0]:.4f} ms (rel {v[1]:.1e})" for k, v in yard.items())
+            line += " (built outside the timed call)"
+            row["library_ms"] = yard["sparse.mm"][0]
+            row["index_add_ms"] = yard.get("index_add_", (None,))[0]
+        by_width[t] = row
         say(4, line)
+        del U, Up, Uc, V
     # the same shape in turns: the split's tfrac, uniform points, and the
     # split's tfrac sorted per component (each lane's points then share
     # cells: back-to-back read-modify-writes of one word)
@@ -912,7 +997,7 @@ def phase4_main_path(results):
     tf_test = ski.build_ski(kspec, kp, kb, xt, kspec.grid_size,
                             z_bounds=span).tfrac
     del z, zt
-    k2_on_split(buffers["ski_state"].tfrac, tf_test)
+    k2_on_split(buffers["ski_state"].tfrac, tf_test, results)
     leaves = [params["raw_noise"], params["mean_const"],
               *params["kernel"].values()]
     for t in leaves:
@@ -1648,7 +1733,8 @@ def phase8_dense_main_path(results):
 
 
 # the K2 and K3 kernels' names in csrc/interp.cu, for torch.profiler
-K2_NAMES = ("transpose_partial_kernel", "reduce_partials_kernel")
+K2_NAMES = ("transpose_own_kernel", "transpose_slots_kernel",
+            "reduce_partials_kernel")
 K3_NAMES = ("apply_sum_shifted_kernel", "apply_sum_rows_kernel")
 SPEC_SKI_SML = os.path.join(ROOT, "specs", "rp_poly_j20_ski.json")
 _SPLITS = {}  # data made once per run: name -> split 0
@@ -1667,10 +1753,11 @@ def _split(name):
 def hold_interp(phase, label, tf, m, t, gen, tf_out=None, far=False):
     """K2 (W^T V on tf's points) and K3 (sum_j W_j G_j on tf_out's points,
     tf's when None) at width t against their plain versions: rel <= 1e-5,
-    bit-for-bit repeats; far=True puts 10 points of tf_out far beyond the
-    grid and holds their rows at exact zero (K3) and their values out of
-    U (K2). Both timed by CUDA events beside their bounds. Returns the
-    results of both (ms, plain_ms, bound_ms, max_abs_err)."""
+    bit-for-bit repeats, K2 in one launch; far=True puts 11 points of tf
+    and tf_out far beyond the grid (the -100 padding among them) and holds
+    their rows at exact zero (K3) and their values out of U (K2). Both
+    timed by CUDA events beside their bounds, K2 through its C entry.
+    Returns the results of both (ms, plain_ms, bound_ms, max_abs_err)."""
     import torch
 
     from rpagp_torch.ops import cuda_interp
@@ -1681,10 +1768,11 @@ def hold_interp(phase, label, tf, m, t, gen, tf_out=None, far=False):
     n_out = tf_out.shape[1]
     if far:
         tf, tf_out = tf.clone(), tf_out.clone()
-        beyond = torch.tensor([-1e6, -1e4, -50.0, -3.0, -2.001, m + 1.001,
-                               m + 1.5, m + 7.0, m + 1e4, 1e6], device=dev)
-        tf[:, 100:110] = beyond
-        tf_out[:, 100:110] = beyond
+        beyond = torch.tensor([-1e6, -1e4, -100.0, -50.0, -3.0, -2.001,
+                               m + 1.001, m + 1.5, m + 7.0, m + 1e4, 1e6],
+                              device=dev)
+        tf[:, 100:111] = beyond
+        tf_out[:, 100:111] = beyond
     V = torch.randn(n, t, generator=gen).to(dev)
     G = torch.randn(J, t, m, generator=gen).to(dev)
     U = cuda_interp.interp_transpose_cuda(tf, V, m)
@@ -1702,14 +1790,17 @@ def hold_interp(phase, label, tf, m, t, gen, tf_out=None, far=False):
     line = ""
     if far:
         V2 = V.clone()
-        V2[100:110] = 1e6
+        V2[100:111] = 1e6
         check(torch.equal(cuda_interp.interp_transpose_cuda(tf, V2, m), U),
               f"K2 {label}: points beyond the grid contribute")
-        check(bool((O[100:110] == 0).all()) and bool((Op[100:110] == 0).all()),
+        check(bool((O[100:111] == 0).all()) and bool((Op[100:111] == 0).all()),
               f"K3 {label}: points beyond the grid are not zero")
-        line = "; 10 points beyond the grid: K3 rows exactly 0, K2 ignores them"
-    ms_t = cuda_ms(lambda: cuda_interp.interp_transpose_cuda(tf, V, m),
-                   iters=10)
+        line = "; 11 points beyond the grid: K3 rows exactly 0, K2 ignores them"
+    before = cuda_interp.launches["interp_transpose"]
+    cuda_interp.interp_transpose_cuda(tf, V, m)
+    check(cuda_interp.launches["interp_transpose"] - before == 1,
+          f"K2 {label} t={t}: not one launch")
+    ms_t, _ = k2_c_entry_ms(tf, V, m, iters=3 if t >= 512 else 10)
     ms_a = cuda_ms(lambda: cuda_interp.interp_apply_sum_cuda(tf_out, G),
                    iters=10)
     pms_t = cuda_ms(lambda: cuda_interp.interp_transpose_plain(tf, V, m),
@@ -1722,8 +1813,8 @@ def hold_interp(phase, label, tf, m, t, gen, tf_out=None, far=False):
                          flops=2 * 4 * J * n * t)
     b_a, by_a, _ = bound(4 * (J * n_out + n_out * t + J * t * m),
                          flops=2 * 4 * J * n_out * t)
-    say(phase, f"K2 {label} (J={J}, n={n}, m={m}, t={t}, {-(-t // 8)} "
-               f"launches): rel {eU:.2e}, {ms_t:.4f} ms vs plain {pms_t:.3f}"
+    say(phase, f"K2 {label} (J={J}, n={n}, m={m}, t={t}, one launch): rel "
+               f"{eU:.2e}, {ms_t:.4f} ms (C entry) vs plain {pms_t:.3f}"
                f" ms, bound {b_t:.4f} ms ({by_t}); K3 (n={n_out}): rel "
                f"{eO:.2e}, {ms_a:.4f} ms vs plain {pms_a:.3f} ms, bound "
                f"{b_a:.4f} ms ({by_a}); repeats bit for bit{line}")
@@ -1849,7 +1940,7 @@ def phase9a_ski_bbmm_sml(results):
           f"SKI + BBMM buffers {sorted(buffers)}")
     tf = buffers["ski_state"].tfrac
     hold_interp(9, "on sml's tfrac (every CG iteration)", tf, m_grid,
-                spec.num_probes + 1, gen)
+                spec.num_probes + 1, gen, far=True)
 
     # the CUDA MLL against the port's CPU one: run_split's initial params,
     # projection and data, the same probe normals (the CPU side, the plain
@@ -2050,7 +2141,7 @@ def phase9b_ski_bbmm_houseelectric(results):
     m_grid = spec.kernel.grid_size
     st_tr, st_te = iterative._union_states(spec, params, buffers, x, xt)
     res9 = hold_interp(9, "on the flagship's tfrac (every CG iteration)", tf,
-                       m_grid, spec.num_probes + 1, gen)
+                       m_grid, spec.num_probes + 1, gen, far=True)
     say(9, f"the flagship's CG MVM at t = 9: K2 + K3 {res9['interp_transpose']['ms'] + res9['interp_apply_sum']['ms']:.3f} ms an iteration")
     for t in (spec.love_rank, spec.love_rank + 1):
         hold_interp(9, "posterior cross MVM (K2 on train, K3 on test)",

@@ -1,6 +1,6 @@
 // K2 / K3: SKI cubic-convolution interpolation, both directions.
 //
-// K2 `interp_transpose`:  U[j] = W_j^T V      tfrac (J, n), V^T (t, n) -> (J, t, m)
+// K2 `interp_transpose`:  U[j] = W_j^T V      tfrac (J, n), V (n, t) -> (J, t, m)
 // K3 `interp_apply_sum`:  out = sum_j W_j G_j  tfrac (J, n), G (J, t, m) -> (n, t)
 //
 // Replace rpagp/ops/pallas_interp.py `_transpose_kernel` and
@@ -36,38 +36,53 @@
 // run in further sweeps that add to out. No atomics: every sum has a
 // fixed order (at t = 1 one FMA a tap, over the components and then the
 // taps in order), so repeats are bit for bit the same.
-// K2 is a scatter whose work follows the taps: one warp takes a
-// chunk of points of one component, lane l its points l, l + 32, .., and
-// every lane adds its points' taps into its own copy of the (t, m)
-// accumulator in shared memory, so no two lanes ever add to one word and
-// crowded points cost no more than spread ones. The copies are
-// interleaved, word (k m + c) 32 + lane, so the 32 lanes of any access
-// sit on 32 different banks. At the end lane l adds the 32 copies of
-// cells l, l + 32, .. (starting at copy l, again one bank a lane) into
-// the chunk's partial (t, m), and a second kernel adds the chunks'
-// partials in chunk order: no atomics, the same bits on every run, each
-// sum in an order fixed by the point index. The copies' shared memory
-// sets how many warps an SM holds (six or seven at m = 256, one column),
-// and the scatter is bound by their latency, not by HBM: so a warp holds
-// at most 256 accumulator floats a lane (m of them a column), and wider t
-// runs in passes over the columns, each reading tfrac again (at m = 256
-// one pass a column: two columns in one pass halve the warps an SM holds
-// and were slower on the H100 than two passes).
+// K2 is a scatter whose work follows the taps. A warp takes a chunk of
+// points of one component and a tile of C <= 32 of the t columns: one
+// column a tile at t <= 2 (so that each column of grid prepare's
+// U^T [y, 1] adds in a one-column call's order, the same bits), all t at
+// t <= 32, else tiles of 32 and one of the rest (a second launch). Its
+// lanes are P = floor(32 / C) point slots of C column lanes, lane p C + k
+// (lanes past P C idle): lane (p, k) adds the taps of slot p's points for
+// column k0 + k into its own copy of the m cells in shared memory, so no
+// two lanes ever add to one word and crowded points cost no more than
+// spread ones. The copy of lane l holds cell c at word (c + 4) 32 + l, so
+// the 32 lanes of any access sit on 32 different banks, and a warp holds
+// 32 (m + 8) floats at any C: a tile of 32 columns costs no more
+// occupancy than one column. At P < 32 a batch of 32 points runs in
+// ceil(32 / P) rounds: lane l computes point l's base cell and weights
+// once and stages them in shared memory, and in round r slot p takes
+// point r P + p, reading V[i, k0 + k] in V's own (n, t) row-major layout
+// (at C = t a round's live lanes read P C consecutive floats). At P = 32
+// lane l takes points l, l + 32, .. itself. tfrac is clamped to [-3,
+// m + 1] (NaN to -3): on that range the clamp changes nothing, and off it
+// every tap, like a tap off the grid, lands in the padding cells -4 .. -1
+// or m .. m + 3, which no sum reads, so there is no bounds test and no
+// branch. At the end lane l adds the P copies of each of its (column,
+// cell) outputs, starting at copy c mod P (one bank a lane), into the
+// chunk's partial (t, m), and a last kernel adds the chunks' partials in
+// chunk order: no atomics, the same bits on every run, each sum in an
+// order fixed by the point index. A (point, column) costs four shared
+// read-modify-writes, so the scatter is bound by the shared-memory pipe,
+// which on the H100 takes about two cycles a 32-lane 4-byte access
+// (scripts/torch_ab_k2k5.py measures it), and by the latency of that
+// chain with the few warps the copies leave an SM (6 at m = 256). Blocks
+// hold two independent warps (faster than one-warp blocks at t = 1 on
+// the H100).
 
+#include <climits>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int T_MAX = 8;     // K2: columns per launch (the wrapper chunks t)
 constexpr int M_MAX = 1024;  // grid cells
 constexpr int NT = 256;      // threads per block of K2's reduction
-constexpr int LANE_FLOATS = 256;  // K2: a lane's accumulator floats a pass
-// K2: points a lane loads a batch, the next batch's loads in flight
-// while this one's taps are added: 16 at one column, fewer at more
-__host__ __device__ constexpr int batch_points(int tc) {
-  return tc == 1 ? 16 : (16 / tc > 2 ? 16 / tc : 2);
-}
-constexpr int NO_CELL = -1000000;
+constexpr int K2_TILE = 32;  // K2: columns a warp carries at most
+constexpr int K2_PAD = 4;    // K2: padding cells at each end of a copy
+constexpr int K2_OWN_NB = 16;  // K2, one-column tiles: batches in flight
+// K2: warps a block at most, each its own (component, tile, chunk) and
+// copies (fewer where their shared memory does not fit)
+constexpr int K2_WARPS = 2;
+constexpr size_t K2_SMEM = 227 * 1024;  // shared memory a block may hold
 
 __device__ __forceinline__ float inner_w(float s) {
   return ((1.5f * s - 2.5f) * s) * s + 1.0f;
@@ -76,126 +91,266 @@ __device__ __forceinline__ float outer_w(float s) {
   return ((-0.5f * s + 2.5f) * s - 4.0f) * s + 2.0f;
 }
 
-// base cell and the 4 tap weights; NO_CELL for padding / off-grid points
-__device__ __forceinline__ int taps(float tf, int m, float w[4]) {
-  if (!(tf > -8.0f && tf < (float)(m + 8))) {
-    w[0] = w[1] = w[2] = w[3] = 0.0f;
-    return NO_CELL;
-  }
-  float fl = floorf(tf);
-  float f = tf - fl, g = 1.0f - f;
-  w[0] = outer_w(1.0f + f);
-  w[1] = inner_w(f);
-  w[2] = inner_w(g);
-  w[3] = outer_w(1.0f + g);
-  return (int)fl;
+// the 4 tap weights of tf clamped to [-3, hi = m + 1] (NaN to -3), and
+// the word offset of its first tap, cell floor - 1, in a padded copy
+__device__ __forceinline__ int taps(float tf, float hi, float4& w) {
+  tf = fminf(fmaxf(tf, -3.0f), hi);
+  const float fl = floorf(tf);
+  const float f = tf - fl, g = 1.0f - f;
+  w = make_float4(outer_w(1.0f + f), inner_w(f), inner_w(g),
+                  outer_w(1.0f + g));
+  return ((int)fl + 3) * 32;
 }
 
-// tfrac and V^T of points base + 32 p + lane, p < PF (padding past end)
-template <int TC, int PF>
-__device__ __forceinline__ void load_points(float tv[PF], float vv[PF][TC],
-                                            const float* tf, const float* VT,
-                                            int base, int end, int n,
-                                            int k0) {
-  const int lane = threadIdx.x;
-#pragma unroll
-  for (int p = 0; p < PF; ++p) {
-    const int i = base + 32 * p + lane;
-    const bool in = i < end;
-    tv[p] = in ? __ldg(tf + i) : -100.0f;
-#pragma unroll
-    for (int k = 0; k < TC; ++k)
-      vv[p][k] = in ? __ldg(VT + (size_t)(k0 + k) * n + i) : 0.0f;
+// a point's 4 taps into the lane's copy a: four read-modify-writes at
+// fixed offsets from one address, all four in flight at once
+__device__ __forceinline__ void add_taps(float* a, int off, float4 w,
+                                         float v) {
+  float* q = a + off;
+  const float a0 = q[0], a1 = q[32], a2 = q[64], a3 = q[96];
+  q[0] = fmaf(w.x, v, a0);
+  q[32] = fmaf(w.y, v, a1);
+  q[64] = fmaf(w.z, v, a2);
+  q[96] = fmaf(w.w, v, a3);
+}
+
+// the warp's item b = W block + warp: chunk ch of the points [start,
+// end), component j, tile q (columns k0 + q width .. + C - 1); ok is
+// false past the last item. With one tile the chunk is the fastest index
+// (b = ch + nchunk j), so that neighbouring warps stream neighbouring
+// tfrac; with several, the component and then the tile (b = j + J (q +
+// tiles ch)), so that the J tiles warps that read the same V rows run
+// side by side and share them through L2
+struct Tile {
+  int j, kt, C, ch, start, end;
+  bool ok;
+};
+__device__ __forceinline__ Tile k2_tile(int J, int n, int t, int chunk,
+                                        int k0, int tiles, int width) {
+  const int nchunk = (n + chunk - 1) / chunk;
+  const int b = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const bool one = tiles == 1;
+  const int ch = one ? b % nchunk : b / J / tiles;
+  const int j = one ? b / nchunk : b % J, q = one ? 0 : b / J % tiles;
+  const int kt = k0 + q * width, start = ch * chunk;
+  return {j, kt, min(width, t - kt), ch, start, min(n, start + chunk),
+          one ? j < J : ch < nchunk};
+}
+
+// the warp's copies in the block's dynamic shared memory
+__device__ __forceinline__ float* warp_copies(float* smem, int m) {
+  return smem + (threadIdx.x >> 5) * (m + 2 * K2_PAD) * 32;
+}
+
+// zeros the 32 lanes' copies, 32 (m + 2 K2_PAD) floats
+__device__ __forceinline__ void zero_copies(float* acc, int m) {
+  float4* a4 = reinterpret_cast<float4*>(acc);
+  for (int e = threadIdx.x & 31; e < (m + 2 * K2_PAD) * 8; e += 32)
+    a4[e] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+
+// lane l sums outputs o = l, l + 32, .. of the tile's C m into out (the
+// tile's (C, m) rows of the chunk's partial): column k = o mod C, cell
+// c = o / C, over its copies c mod P, .., P - 1, 0, .. in turn
+__device__ __forceinline__ void fold_copies(const float* acc, float* out,
+                                            int C, int P, int m) {
+  for (int o = threadIdx.x & 31; o < C * m; o += 32) {
+    const int c = o / C, k = o - c * C;
+    const float* row = acc + (c + K2_PAD) * 32 + k;
+    float s = 0.0f;
+    for (int u = 0, p = c % P; u < P; ++u, p = p + 1 == P ? 0 : p + 1)
+      s += row[p * C];
+    out[(size_t)k * m + c] = s;
   }
 }
 
-// grid (nchunk, J), one warp a block: partial[ch, j, k0 + k, c] = sum over
-// the chunk's points of W_j[i, c] V[i, k0 + k], k < TC. Dynamic shared
-// memory: TC m 32 floats, the 32 lanes' copies of the accumulator. A
-// point whose four cells all lie on the grid (every point of data the
-// grid covers) takes a path with no bounds test, its four
-// read-modify-writes at fixed offsets from one address, so all four can
-// be in flight at once; points at the edges take a path that tests each
-// tap; padding and points off the grid add nothing.
-template <int TC>
-__global__ void __launch_bounds__(32)
-transpose_partial_kernel(const float* __restrict__ tfrac,
-                         const float* __restrict__ VT,
-                         float* __restrict__ partial, int J, int n, int t,
-                         int m, int chunk, int k0) {
-  constexpr int PF = batch_points(TC);
-  extern __shared__ float acc[];  // acc[(k m + c) 32 + lane]
-  const int lane = threadIdx.x, j = blockIdx.y, ch = blockIdx.x;
-  const int start = ch * chunk;
-  const int end = min(n, start + chunk);
-  for (int e = lane; e < TC * m * 32; e += 32) acc[e] = 0.0f;
+// one-column tiles (P = 32), a warp an item: lane l takes the chunk's
+// points l, l + 32, .. in order, the next K2_OWN_NB batches' loads in
+// flight while these are added. Dynamic shared memory: the copies.
+__global__ void __launch_bounds__(32 * K2_WARPS)
+transpose_own_kernel(const float* __restrict__ tfrac,
+                     const float* __restrict__ V,
+                     float* __restrict__ partial, int J, int n, int t,
+                     int m, int chunk, int k0, int tiles) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int NB = K2_OWN_NB;
+  const Tile T = k2_tile(J, n, t, chunk, k0, tiles, 1);
+  if (!T.ok) return;
+  const int lane = threadIdx.x & 31;
+  float* const acc = warp_copies(smem, m);
+  zero_copies(acc, m);
   __syncwarp();
-  const float* tf = tfrac + (size_t)j * n;
-  float tv[PF], vv[PF][TC], tn[PF], vn[PF][TC];
-  load_points<TC, PF>(tv, vv, tf, VT, start, end, n, k0);
-  for (int base = start; base < end; base += 32 * PF) {
-    load_points<TC, PF>(tn, vn, tf, VT, base + 32 * PF, end, n, k0);
+  const float* tf = tfrac + (size_t)T.j * n;
+  const float* Vk = V + T.kt;
+  const float hi = (float)(m + 1);
+  float* a = acc + lane;
+  float tv[NB], vv[NB], tn[NB], vn[NB];
+  auto load = [&](float* tq, float* vq, int b0) {
 #pragma unroll
-    for (int p = 0; p < PF; ++p) {
-      float w[4];
-      const int i0 = taps(tv[p], m, w);
-      if (i0 >= 1 && i0 <= m - 3) {  // cells i0 - 1 .. i0 + 2 on the grid
-        float* a = acc + (size_t)(i0 - 1) * 32 + lane;
+    for (int u = 0; u < NB; ++u) {
+      const int i = b0 + 32 * u + lane;
+      const bool in = i < T.end;
+      tq[u] = in ? __ldg(tf + i) : -100.0f;
+      vq[u] = in ? __ldg(Vk + (size_t)i * t) : 0.0f;
+    }
+  };
+  load(tv, vv, T.start);
+  for (int b0 = T.start; b0 < T.end; b0 += 32 * NB) {
+    load(tn, vn, b0 + 32 * NB);
 #pragma unroll
-        for (int k = 0; k < TC; ++k) {
-          float* ak = a + (size_t)k * m * 32;
-          const float a0 = ak[0], a1 = ak[32], a2 = ak[64], a3 = ak[96];
-          ak[0] = a0 + w[0] * vv[p][k];
-          ak[32] = a1 + w[1] * vv[p][k];
-          ak[64] = a2 + w[2] * vv[p][k];
-          ak[96] = a3 + w[3] * vv[p][k];
-        }
-      } else if (i0 != NO_CELL) {
-#pragma unroll
-        for (int d = 0; d < 4; ++d) {
-          const int c = i0 - 1 + d;
-          if ((unsigned)c < (unsigned)m) {
-#pragma unroll
-            for (int k = 0; k < TC; ++k) {
-              float* ak = acc + (size_t)(k * m + c) * 32 + lane;
-              *ak = *ak + w[d] * vv[p][k];
-            }
-          }
-        }
-      }
+    for (int u = 0; u < NB; ++u) {
+      float4 w;
+      const int off = taps(tv[u], hi, w);
+      add_taps(a, off, w, vv[u]);
     }
 #pragma unroll
-    for (int p = 0; p < PF; ++p) {
-      tv[p] = tn[p];
-#pragma unroll
-      for (int k = 0; k < TC; ++k) vv[p][k] = vn[p][k];
+    for (int u = 0; u < NB; ++u) {
+      tv[u] = tn[u];
+      vv[u] = vn[u];
     }
   }
   __syncwarp();
-  float* out = partial + (((size_t)ch * J + j) * t + k0) * m;
-  for (int r = lane; r < TC * m; r += 32) {
-    const float* row = acc + (size_t)r * 32;
-    float v = 0.0f;
-    for (int q = 0; q < 32; ++q) v += row[(lane + q) & 31];
-    out[r] = v;
-  }
+  fold_copies(acc, partial + (((size_t)T.ch * J + T.j) * t + T.kt) * m, 1,
+              32, m);
 }
 
-template <int TC>
-int launch_transpose(const float* tfrac, const float* VT, float* partial,
-                     int J, int n, int t, int m, int chunk, int k0,
-                     cudaStream_t s) {
-  const size_t bytes = sizeof(float) * TC * m * 32;
-  if (bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        transpose_partial_kernel<TC>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (e != cudaSuccess) return (int)e;
+// tiles of C = width >= 2 columns, P = 32 / C slots of C column lanes,
+// R = ceil(32 / P) rounds a batch of 32 points. Lane (p, k) = p C + k; a
+// lane past P C takes slot P - 1 with V = 0 and adds into its own copy,
+// which no sum reads. Lane l computes point l's weights and offset once
+// and stages them at entry (l mod P) R + l / P (offsets at (l mod P) R4 +
+// l / P, so that one 16-byte read gives 4 rounds'); in round r slot p
+// reads entry p R + r, point r P + p, the weights and offsets of 4 rounds
+// ahead of their read-modify-writes. The entries of rounds past the
+// batch's 32 points are never written: they keep the zeros the kernel
+// starts with, and V = 0 there, so they add nothing. The next batch's
+// tfrac and V go out before this batch's rounds. The stage is static
+// shared memory, apart from the copies (the dynamic shared memory).
+template <int P>
+__global__ void __launch_bounds__(32 * K2_WARPS)
+transpose_slots_kernel(const float* __restrict__ tfrac,
+                       const float* __restrict__ V,
+                       float* __restrict__ partial, int J, int n, int t,
+                       int m, int chunk, int k0, int tiles, int width) {
+  constexpr int R = (32 + P - 1) / P, R4 = (R + 3) / 4 * 4;
+  __shared__ float4 sws[K2_WARPS][P * R];
+  __shared__ __align__(16) int sos[K2_WARPS][P * R4];
+  extern __shared__ __align__(16) float smem[];
+  const Tile T = k2_tile(J, n, t, chunk, k0, tiles, width);
+  if (!T.ok) return;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, C = T.C;
+  float4* const sw = sws[warp];
+  int* const so = sos[warp];
+  float* const acc = warp_copies(smem, m);
+  zero_copies(acc, m);
+  for (int e = lane; e < P * R; e += 32)
+    sw[e] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int e = lane; e < P * R4; e += 32) so[e] = 0;
+  __syncwarp();
+  const bool live = lane < P * C;
+  const int p = live ? lane / C : P - 1;
+  const int k = live ? lane - p * C : 0;
+  const float* tf = tfrac + (size_t)T.j * n;
+  const float* Vk = V + T.kt + k;
+  const float hi = (float)(m + 1);
+  float* a = acc + lane;
+  const float4* wp = sw + p * R;
+  const int4* op = reinterpret_cast<const int4*>(so + p * R4);
+  float tv, vv[R], tn, vn[R];
+  auto load = [&](float& tq, float* vq, int b0) {
+    tq = b0 + lane < T.end ? __ldg(tf + b0 + lane) : -100.0f;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int i = b0 + r * P + p;
+      vq[r] = live && r * P + p < 32 && i < T.end ? __ldg(Vk + (size_t)i * t)
+                                                  : 0.0f;
+    }
+  };
+  load(tv, vv, T.start);
+  for (int b0 = T.start; b0 < T.end; b0 += 32) {
+    load(tn, vn, b0 + 32);
+    float4 w;
+    const int off = taps(tv, hi, w);
+    __syncwarp();  // the last batch's rounds have read the stage
+    sw[lane % P * R + lane / P] = w;
+    so[lane % P * R4 + lane / P] = off;
+    __syncwarp();
+#pragma unroll
+    for (int r4 = 0; r4 < R; r4 += 4) {
+      const int4 o = op[r4 / 4];
+      const int offs[4] = {o.x, o.y, o.z, o.w};
+      float4 ws[4];
+#pragma unroll
+      for (int r = r4; r < r4 + 4 && r < R; ++r) ws[r - r4] = wp[r];
+#pragma unroll
+      for (int r = r4; r < r4 + 4 && r < R; ++r)
+        add_taps(a, offs[r - r4], ws[r - r4], vv[r]);
+    }
+    tv = tn;
+#pragma unroll
+    for (int r = 0; r < R; ++r) vv[r] = vn[r];
   }
-  dim3 grid((n + chunk - 1) / chunk, J);
-  transpose_partial_kernel<TC><<<grid, 32, bytes, s>>>(tfrac, VT, partial, J,
-                                                       n, t, m, chunk, k0);
+  __syncwarp();
+  fold_copies(acc, partial + (((size_t)T.ch * J + T.j) * t + T.kt) * m, C,
+              P, m);
+}
+
+// raises a kernel's dynamic shared memory limit to `bytes` on the current
+// device, once a device (a limit is set, not read, on every call)
+template <auto kernel>
+cudaError_t k2_smem(size_t bytes) {
+  static size_t set[64] = {};
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 64 && bytes <= set[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)bytes);
+  if (e == cudaSuccess && dev < 64) set[dev] = bytes;
+  return e;
+}
+
+// `items` warps' work in blocks of W <= K2_WARPS warps, as many as fit,
+// each with `per_warp` bytes of dynamic shared memory
+template <auto kernel, typename... Args>
+int k2_launch(int items, size_t per_warp, cudaStream_t s, Args... args) {
+  int w = K2_WARPS;
+  while (w > 1 && w * per_warp > K2_SMEM) w /= 2;
+  const size_t bytes = w * per_warp;
+  const cudaError_t e = k2_smem<kernel>(bytes);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<(items + w - 1) / w, 32 * w, bytes, s>>>(args...);
   return (int)cudaGetLastError();
+}
+
+// K2's scatter over `tiles` tiles of `width` columns from column k0, one
+// warp a (component, tile, chunk)
+int k2_tiles(const float* tfrac, const float* V, float* partial, int J,
+             int n, int t, int m, int chunk, int nchunk, int k0, int tiles,
+             int width, cudaStream_t s) {
+  const int items = J * tiles * nchunk;
+  const size_t copies = sizeof(float) * (size_t)(m + 2 * K2_PAD) * 32;
+#define K2_SLOTS(P)                                                    \
+  k2_launch<transpose_slots_kernel<P>>(items, copies, s, tfrac, V,    \
+                                       partial, J, n, t, m, chunk, k0, \
+                                       tiles, width)
+  switch (K2_TILE / width) {
+    case 32:
+      return k2_launch<transpose_own_kernel>(items, copies, s, tfrac, V,
+                                             partial, J, n, t, m, chunk, k0,
+                                             tiles);
+    case 16: return K2_SLOTS(16);
+    case 10: return K2_SLOTS(10);
+    case 8: return K2_SLOTS(8);
+    case 6: return K2_SLOTS(6);
+    case 5: return K2_SLOTS(5);
+    case 4: return K2_SLOTS(4);
+    case 3: return K2_SLOTS(3);
+    case 2: return K2_SLOTS(2);
+    default: return K2_SLOTS(1);
+  }
+#undef K2_SLOTS
 }
 
 // U[e] = sum_ch partial[ch, e], in chunk order
@@ -551,37 +706,40 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 
 }  // namespace
 
-// tfrac (J, n), VT (t, n), partial (nchunk, J, t, m) scratch, U (J, t, m);
-// t <= 8, m <= 1024, nchunk = ceil(n / chunk). Passes over the columns of
-// 8, 4, 2 or 1, the widest whose accumulator fits LANE_FLOATS (one column
-// where m alone is more). Returns cudaGetLastError().
-extern "C" int rpagp_interp_transpose(const float* tfrac, const float* VT,
+// tfrac (J, n), V (n, t) row-major, partial (nchunk, J, t, m) scratch, U
+// (J, t, m), all contiguous; any t, 1 <= m <= M_MAX, nchunk = ceil(n /
+// chunk). One scatter launch of J tiles nchunk one-warp blocks (at t > 32
+// a second for the narrower last tile), then the chunks' sum. Tiles: one
+// column each at t <= 2, all t columns at 3 <= t <= 32, else 32 columns
+// and the rest. Returns cudaGetLastError() or the error of a refused
+// attribute.
+extern "C" int rpagp_interp_transpose(const float* tfrac, const float* V,
                                       float* partial, float* U, int J, int n,
                                       int t, int m, int chunk, void* stream) {
-  if (J < 1 || n < 1 || t < 1 || t > T_MAX || m < 1 || m > M_MAX ||
-      chunk < 1)
+  if (J < 1 || n < 1 || t < 1 || m < 1 || m > M_MAX || chunk < 1)
+    return (int)cudaErrorInvalidValue;
+  const long long nchunk = ((long long)n + chunk - 1) / chunk;
+  const long long total = (long long)J * t * m;
+  if ((long long)J * t * nchunk > INT_MAX || total > INT_MAX)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const int cap = LANE_FLOATS / m > 1 ? LANE_FLOATS / m : 1;
-  for (int k0 = 0; k0 < t; ) {
-    const int left = t - k0 < cap ? t - k0 : cap;
-    const int tc = left >= 8 ? 8 : left >= 4 ? 4 : left >= 2 ? 2 : 1;
-    const int err =
-        tc == 8   ? launch_transpose<8>(tfrac, VT, partial, J, n, t, m, chunk,
-                                        k0, s)
-        : tc == 4 ? launch_transpose<4>(tfrac, VT, partial, J, n, t, m, chunk,
-                                        k0, s)
-        : tc == 2 ? launch_transpose<2>(tfrac, VT, partial, J, n, t, m, chunk,
-                                        k0, s)
-                  : launch_transpose<1>(tfrac, VT, partial, J, n, t, m, chunk,
-                                        k0, s);
-    if (err) return err;
-    k0 += tc;
+  const int nc = (int)nchunk;
+  int err;
+  if (t <= 2) {
+    err = k2_tiles(tfrac, V, partial, J, n, t, m, chunk, nc, 0, t, 1, s);
+  } else if (t <= K2_TILE) {
+    err = k2_tiles(tfrac, V, partial, J, n, t, m, chunk, nc, 0, 1, t, s);
+  } else {
+    const int full = t / K2_TILE, rest = t - full * K2_TILE;
+    err = k2_tiles(tfrac, V, partial, J, n, t, m, chunk, nc, 0, full,
+                   K2_TILE, s);
+    if (!err && rest)
+      err = k2_tiles(tfrac, V, partial, J, n, t, m, chunk, nc,
+                     full * K2_TILE, 1, rest, s);
   }
-  const int nchunk = (n + chunk - 1) / chunk;
-  const int total = J * t * m;
-  reduce_partials_kernel<<<(total + NT - 1) / NT, NT, 0, s>>>(partial, U,
-                                                             nchunk, total);
+  if (err) return err;
+  reduce_partials_kernel<<<(int)((total + NT - 1) / NT), NT, 0, s>>>(
+      partial, U, nc, (int)total);
   return (int)cudaGetLastError();
 }
 

@@ -16,11 +16,10 @@ are exact adjoints of each other.
 A CPU tensor takes the plain version (the blocked dense plan of
 ops/ski.py: the (J, block, m) interpolation matrix built from tfrac,
 contracted with einsum); a CUDA tensor launches the kernel; anything else
-raises. K2's wrapper chunks t into launches of at most 8 columns (K2
-runs passes of up to 8 inside a launch); K3 takes any t in one launch.
-Both take m <= M_MAX: K3's table of one component in shared memory (33
-KB at m = 1024, t > 4) and K2's per-lane accumulator copies are sized for
-it. Past it the wrappers raise.
+raises. Each takes any t in one launch, V in its (n, t) layout. Both take
+m <= M_MAX: K3's table of one component in shared memory (33 KB at
+m = 1024, t > 4) and K2's per-lane accumulator copies (132 KB a warp at
+m = 1024) are sized for it. Past it the wrappers raise.
 """
 
 from __future__ import annotations
@@ -32,10 +31,47 @@ from . import _build
 # launches of the CUDA kernels, per entry point
 launches = {"interp_transpose": 0, "interp_apply_sum": 0}
 
-T_CHUNK = 8  # K2: columns per launch (csrc/interp.cu T_MAX)
 M_MAX = 1024  # csrc/interp.cu M_MAX: the grid cells both kernels take
-_POINTS_PER_BLOCK = 8192  # K2: points per warp (one partial sum)
 _DENSE_BLOCK = 4096  # plain version: points per dense W block
+
+# K2's chunk of points a warp (csrc/interp.cu): sized for the H100, 132
+# SMs of 228 KB of shared memory (1 KB of it reserved a block), so that
+# its warps fill the card _K2_WAVES times, a warp takes at least
+# _K2_MIN_ROUNDS rounds where that leaves no SM idle, and the partial sums
+# stay within _K2_SCRATCH_FLOATS
+K2_TILE = 32  # csrc/interp.cu K2_TILE: columns a warp carries at most
+_K2_WARPS = 2  # csrc/interp.cu K2_WARPS: warps a block
+_K2_SMS, _K2_SMEM_SM, _K2_SMEM_BLOCK = 132, 233472, 232448
+_K2_WAVES, _K2_MIN_ROUNDS = 2, 256
+_K2_SCRATCH_FLOATS = 64 << 20  # 256 MB
+
+
+def _k2_warps_per_sm(m: int) -> int:
+    """K2's warps an SM holds (csrc/interp.cu `k2_launch`): blocks of
+    _K2_WARPS warps (one where two do not fit), each warp with its 32
+    lanes' padded copies (the slots kernel's stage, about 1.5 KB of static
+    memory, is left out)."""
+    per_warp = 4 * 32 * (m + 8)
+    w = _K2_WARPS if _K2_WARPS * per_warp <= _K2_SMEM_BLOCK else 1
+    return min(64, w * (_K2_SMEM_SM // (w * per_warp + 1024)))
+
+
+def transpose_chunk(J: int, n: int, t: int, m: int) -> int:
+    """Points a K2 warp takes, a multiple of 32. Tiles: one column each at
+    t <= 2, all t at t <= 32, else 32 columns and the rest (csrc/interp.cu
+    `rpagp_interp_transpose`); t = 2 takes t = 1's chunks, so that each of
+    its columns adds in a one-column call's order."""
+    if t == 2:
+        return transpose_chunk(J, n, 1, m)
+    blocks_per_chunk = J * -(-t // K2_TILE)
+    slots = K2_TILE // min(t, K2_TILE)  # points a round, P
+    resident = _K2_SMS * _k2_warps_per_sm(m)
+    nchunk = min(max(1, _K2_WAVES * resident // blocks_per_chunk),
+                 max(-(-resident // blocks_per_chunk),
+                     n // (_K2_MIN_ROUNDS * slots)),
+                 max(1, _K2_SCRATCH_FLOATS // (J * t * m)),
+                 -(-n // 32))
+    return 32 * -(-n // (32 * nchunk))
 
 
 def cubic_kernel(s):
@@ -89,23 +125,17 @@ def interp_transpose_cuda(tfrac, V, m: int):
     if not 0 < m <= M_MAX:
         raise ValueError(f"interp_transpose supports 0 < m <= {M_MAX}, got {m}")
     t = V.shape[1]
-    VT = V.t().contiguous()  # (t, n): the kernel's layout
-    nchunk = -(-n // _POINTS_PER_BLOCK)
-    partial = torch.empty(nchunk * J * min(t, T_CHUNK) * m,
-                          dtype=V.dtype, device=V.device)
-    lib = _build.lib()
-    stream = _build.stream_ptr(V.device)
-    outs = []
-    for s in range(0, t, T_CHUNK):
-        tc = min(T_CHUNK, t - s)
-        U = torch.empty(J, tc, m, dtype=V.dtype, device=V.device)
-        err = lib.rpagp_interp_transpose(
-            tfrac.data_ptr(), VT[s:s + tc].data_ptr(), partial.data_ptr(),
-            U.data_ptr(), J, n, tc, m, _POINTS_PER_BLOCK, stream)
-        _build.check(err, "interp_transpose kernel")
-        launches["interp_transpose"] += 1
-        outs.append(U)
-    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    V = V.contiguous()  # (n, t) row-major: the kernel's layout
+    chunk = transpose_chunk(J, n, t, m)
+    partial = torch.empty(-(-n // chunk) * J * t * m, dtype=V.dtype,
+                          device=V.device)
+    U = torch.empty(J, t, m, dtype=V.dtype, device=V.device)
+    err = _build.lib().rpagp_interp_transpose(
+        tfrac.data_ptr(), V.data_ptr(), partial.data_ptr(), U.data_ptr(), J,
+        n, t, m, chunk, _build.stream_ptr(V.device))
+    _build.check(err, "interp_transpose kernel")
+    launches["interp_transpose"] += 1
+    return U
 
 
 def interp_apply_sum_cuda(tfrac, G):

@@ -304,7 +304,7 @@ def test_chol_linv_leaf_refused_launch_raises(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("t", [1, 8, 11])
 def test_interp_matches_plain(cuda_device, t):
-    """Interior and edge points, -100 padding, t chunked by 8."""
+    """Interior and edge points, -100 padding; one K2 launch at any t."""
     J, n, m = 4, 40000, 256
     rng = np.random.default_rng(t)
     tf = rng.uniform(1.0, m - 3.0, (J, n)).astype(np.float32)
@@ -479,17 +479,20 @@ def _interp_case(J, n, m, t, kind, seed, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["uniform", "crowded"])
-@pytest.mark.parametrize("t", [1, 3, 8, 9])
-@pytest.mark.parametrize("m", [17, 256, 1000])
+@pytest.mark.parametrize("t", [1, 2, 3, 8, 9, 11, 16, 31, 32, 33, 512, 513])
+@pytest.mark.parametrize("m", [17, 256, 512, 1000, cuda_interp.M_MAX])
 def test_interp_transpose_matches_plain(cuda_device, kind, t, m):
     """K2 against its plain version (float64): uniform points and points
-    crowded into three cells, the grid's edges, -100 padding; t = 9 in two
-    launches; rel <= 1e-5, padding contributes exactly zero, a repeat is
-    bit for bit the same, and K2 and K3 are adjoints to 1e-5."""
+    crowded into three cells, the grid's edges, -100 padding; every slot
+    layout (t = 1: a slot a lane; 2-31: slots of t column lanes, idle
+    lanes at t = 3, 9, 11, 31; 32: one slot; 33, 513: a one-column tile
+    after the 32-column ones), one launch at any t; rel <= 1e-5, padding
+    contributes exactly zero, a repeat is bit for bit the same, and K2 and
+    K3 are adjoints to 1e-5."""
     tf, V, G = _interp_case(5, 60000, m, t, kind, seed=m + t, dev=cuda_device)
     before = cuda_interp.launches["interp_transpose"]
     U = cuda_interp.interp_transpose_cuda(tf, V, m)
-    assert cuda_interp.launches["interp_transpose"] - before == -(-t // 8)
+    assert cuda_interp.launches["interp_transpose"] - before == 1
     Up = cuda_interp.interp_transpose_plain(tf.double(), V.double(), m)
     torch.cuda.synchronize()
     assert _rel(U, Up) <= 1e-5
@@ -502,6 +505,69 @@ def test_interp_transpose_matches_plain(cuda_device, kind, t, m):
     rhs = float(torch.sum(V.double() * O.double()))
     assert abs(lhs - rhs) <= 1e-5 * float(torch.linalg.norm(U.double())
                                           * torch.linalg.norm(G.double()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 11])
+def test_interp_transpose_small_n_spreads(cuda_device, t):
+    """sml's shape (J = 20, n = 3,723, m = 512): the wrapper's chunk spreads
+    K2 over at least one block an SM of the H100 (132), with several
+    chunks a component; rel <= 1e-5 against float64, a repeat bit for
+    bit, padding exactly zero, and the K2/K3 adjoint to 1e-5."""
+    J, n, m = 20, 3723, 512
+    chunk = cuda_interp.transpose_chunk(J, n, t, m)
+    assert J * -(-t // cuda_interp.K2_TILE) * -(-n // chunk) >= 132
+    tf, V, G = _interp_case(J, n, m, t, "uniform", seed=t, dev=cuda_device)
+    before = cuda_interp.launches["interp_transpose"]
+    U = cuda_interp.interp_transpose_cuda(tf, V, m)
+    assert cuda_interp.launches["interp_transpose"] - before == 1
+    Up = cuda_interp.interp_transpose_plain(tf.double(), V.double(), m)
+    torch.cuda.synchronize()
+    assert _rel(U, Up) <= 1e-5
+    assert torch.equal(cuda_interp.interp_transpose_cuda(tf, V, m), U)
+    V2 = V.clone()
+    V2[-500:] = 1e6
+    assert torch.equal(cuda_interp.interp_transpose_cuda(tf, V2, m), U)
+    O = cuda_interp.interp_apply_sum_cuda(tf, G)
+    lhs = float(torch.sum(U.double() * G.double()))
+    rhs = float(torch.sum(V.double() * O.double()))
+    assert abs(lhs - rhs) <= 1e-5 * float(torch.linalg.norm(U.double())
+                                          * torch.linalg.norm(G.double()))
+
+
+@pytest.mark.cuda
+def test_interp_transpose_takes_a_strided_v(cuda_device):
+    """V handed over as a transposed view or a column slice (as autograd
+    may): the same bits as V made contiguous first, one launch."""
+    tf, V, _ = _interp_case(5, 30000, 256, 9, "uniform", seed=1,
+                            dev=cuda_device)
+    want = cuda_interp.interp_transpose_cuda(tf, V, 256)
+    wide = torch.cat([V, V], dim=1)
+    for view in (V.t().contiguous().t(), wide[:, :9]):
+        assert not view.is_contiguous()
+        before = cuda_interp.launches["interp_transpose"]
+        assert torch.equal(cuda_interp.interp_transpose_cuda(tf, view, 256),
+                           want)
+        assert cuda_interp.launches["interp_transpose"] - before == 1
+
+
+@pytest.mark.cuda
+def test_interp_transpose_rejects_m_past_limit(cuda_device):
+    tf, V, _ = _interp_case(2, 1000, cuda_interp.M_MAX + 1, 3, "uniform",
+                            seed=0, dev=cuda_device)
+    before = cuda_interp.launches["interp_transpose"]
+    with pytest.raises(ValueError, match="m <="):
+        cuda_interp.interp_transpose_cuda(tf, V, cuda_interp.M_MAX + 1)
+    assert cuda_interp.launches["interp_transpose"] == before
+    # the C entry refuses it too, and the wrapper's check raises on that
+    from rpagp_torch.ops import _build
+
+    U = torch.empty(2, 3, cuda_interp.M_MAX + 1, device=cuda_device)
+    err = _build.lib().rpagp_interp_transpose(
+        tf.data_ptr(), V.data_ptr(), U.data_ptr(), U.data_ptr(), 2, 1000, 3,
+        cuda_interp.M_MAX + 1, 32, _build.stream_ptr(cuda_device))
+    with pytest.raises(RuntimeError, match="cudaErrorInvalidValue"):
+        _build.check(err, "interp_transpose kernel")
 
 
 @pytest.mark.cuda
@@ -644,19 +710,21 @@ def test_dense_mll_matches_float64_cpu(cuda_device, family):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("J,m,t", [(20, 512, 11), (20, 256, 9), (20, 256, 257)],
+@pytest.mark.parametrize("J,m,t", [(20, 512, 11), (20, 256, 9), (20, 256, 257),
+                                   (20, 256, 512), (20, 256, 513)],
                          ids=["sml-train", "houseelectric-train",
-                              "posterior-cross"])
+                              "posterior-cross", "love-rank",
+                              "love-rank-plus-one"])
 def test_interp_at_ski_bbmm_shapes(cuda_device, J, m, t):
     """K2 and K3 at the SKI + BBMM path's shapes (every CG iteration at
-    t = num_probes + 1; a posterior cross MVM at t = love_rank + 1) against
-    their plain versions in float64: rel <= 1e-5, K2's launches one per 8
-    columns, and a repeat bit for bit the same."""
+    t = num_probes + 1; a posterior cross MVM at t = love_rank and
+    love_rank + 1) against their plain versions in float64: rel <= 1e-5,
+    one K2 launch at any t, and a repeat bit for bit the same."""
     tf, V, G = _interp_case(J, 20000, m, t, "uniform", seed=t,
                             dev=cuda_device)
     before = cuda_interp.launches["interp_transpose"]
     U = cuda_interp.interp_transpose_cuda(tf, V, m)
-    assert cuda_interp.launches["interp_transpose"] - before == -(-t // 8)
+    assert cuda_interp.launches["interp_transpose"] - before == 1
     O = cuda_interp.interp_apply_sum_cuda(tf, G)
     Up = cuda_interp.interp_transpose_plain(tf.double(), V.double(), m)
     Op = cuda_interp.interp_apply_sum_plain(tf.double(), G.double())
@@ -740,10 +808,10 @@ def test_ski_mvm_matches_cpu(cuda_device, cross):
         o = ski.ski_mvm(kspec, k, st, v, state_rhs=st_rhs)
         torch.sum(o * W.to(d, dtype)).backward()
         if d == cuda_device:
-            # forward K2 in 2 launches (8 + 3 columns) and K3; backward K2
-            # (K3's adjoint) again and K3 (K2's adjoint)
+            # forward K2 and K3; backward K2 (K3's adjoint) and K3 (K2's
+            # adjoint), one launch each at t = 11
             assert cuda_interp.launches["interp_transpose"] \
-                - before["interp_transpose"] == 4
+                - before["interp_transpose"] == 2
             assert cuda_interp.launches["interp_apply_sum"] \
                 - before["interp_apply_sum"] == 2
         out[d == "cpu"] = (o.detach(), [k[key].grad for key in sorted(k)],

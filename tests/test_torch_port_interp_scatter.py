@@ -2,18 +2,22 @@
 
 The kernel cannot run here, so this file holds a torch model of what it
 computes and in which order, `_k2_model(tfrac, V, m, chunk)`: one warp a
-(chunk of points, component); lane l takes the chunk's points l, l + 32,
-.. in order and adds each point's four Keys-cubic taps (Horner weights
-of `taps()`, a tap kept when its cell lies in [0, m), points off the grid
-and the -100 padding skipped) into its own copy of the (t, m)
-accumulator; cell r's 32 copies are then added starting at copy
-r mod 32, and the chunks' partials in chunk order. The model is held
-against the JAX package's Pallas kernel (`pallas_interp.transpose_call`,
-interpret mode, at tests/test_pallas_interp.py's shapes, on points where
-the two plans keep the same taps) and the port's plain version. The
-package does not use the model: tests/test_torch_port_cuda.py holds the
-kernel itself against the plain version on the card. Tolerance: rel <=
-1e-5 (norm-wise); padding contributes exactly zero.
+(chunk of points, component, tile of C <= 32 columns: `_tiles`); its
+lanes are
+P = 32 // C point slots of C column lanes, and in round r of a batch of
+32 points slot p takes point r P + p, lane (p, k) adding its four
+Keys-cubic taps (Horner weights of `taps()`, tfrac clamped to [-3, m + 1]
+so that a tap off the grid, and every tap of padding or of a point off
+the grid, lands in a padding cell) for column k into its own copy of the
+m + 8 cells; cell c of column k then adds its P copies starting at copy
+c mod P, and the chunks' partials in chunk order. The chunk is the
+wrapper's (`cuda_interp.transpose_chunk`). The model is held against the
+JAX package's Pallas kernel (`pallas_interp.transpose_call`, interpret
+mode, at tests/test_pallas_interp.py's shapes, on points where the two
+plans keep the same taps) and the port's plain version. The package does
+not use the model: tests/test_torch_port_cuda.py holds the kernel itself
+against the plain version on the card. Tolerance: rel <= 1e-5
+(norm-wise); padding contributes exactly zero.
 """
 
 import jax.numpy as jnp
@@ -27,6 +31,7 @@ from rpagp_torch.ops import cuda_interp
 torch.set_num_threads(2)
 
 LANES = 32
+PAD = 4  # csrc/interp.cu K2_PAD: padding cells at each end of a copy
 
 
 def _rel(a, b):
@@ -35,10 +40,11 @@ def _rel(a, b):
 
 
 def _taps(tf, m):
-    """(cells (.., 4), weights (.., 4)) of csrc/interp.cu taps(): base
-    cell floor(tf), Horner weights; a tap off the grid, and every tap of a
-    point with tf outside (-8, m + 8) (the -100 padding), goes to cell m,
-    which the model drops."""
+    """(cells (.., 4), weights (.., 4)) of csrc/interp.cu taps(): tf
+    clamped to [-3, m + 1] (NaN to -3), base cell floor, Horner weights;
+    cell c of a padded copy at index c + PAD, so every tap lands in
+    [0, m + 2 PAD) and one off the grid in the padding."""
+    tf = torch.where(torch.isnan(tf), -3.0, tf).clamp(-3.0, m + 1.0)
     fl = torch.floor(tf)
     f = tf - fl
     g = 1.0 - f
@@ -50,10 +56,16 @@ def _taps(tf, m):
         return ((-0.5 * s + 2.5) * s - 4.0) * s + 2.0
 
     w = torch.stack([outer(1.0 + f), inner(f), inner(g), outer(1.0 + g)], -1)
-    on = (tf > -8.0) & (tf < m + 8.0)
-    cells = fl.clamp(-16, m + 16).long()[..., None] - 1 + torch.arange(4)
-    kept = on[..., None] & (cells >= 0) & (cells < m)
-    return torch.where(kept, cells, m), w
+    cells = fl.long()[..., None] + PAD - 1 + torch.arange(4)
+    return cells, w
+
+
+def _tiles(t):
+    """(first column, width C) of K2's column tiles (csrc/interp.cu
+    `rpagp_interp_transpose`): one column each at t <= 2, all t at
+    t <= 32, else 32 columns and the rest."""
+    width = 1 if t <= 2 else cuda_interp.K2_TILE
+    return [(k0, min(width, t - k0)) for k0 in range(0, t, width)]
 
 
 def _k2_model(tfrac, V, m, chunk):
@@ -61,33 +73,39 @@ def _k2_model(tfrac, V, m, chunk):
     J, n = tfrac.shape
     t = V.shape[1]
     U = torch.zeros(J, t, m)
-    lanes = torch.arange(LANES)
-    rows = torch.arange(J)[:, None, None].expand(J, LANES, 4)
-    lane_idx = lanes[None, :, None].expand(J, LANES, 4)
+    jj = torch.arange(J)[:, None, None]
+    cell = torch.arange(m)
     for start in range(0, n, chunk):
         end = min(n, start + chunk)
-        acc = torch.zeros(J, LANES, t, m + 1)  # each lane's own copy
-        for base in range(start, end, LANES):
-            i = base + lanes
-            inside = i < end
-            tf = torch.where(inside, tfrac[:, i.clamp(max=n - 1)],
-                             torch.tensor(-100.0))  # (J, 32)
-            v = torch.where(inside[:, None], V[i.clamp(max=n - 1)],
-                            torch.zeros(()))  # (32, t)
-            cells, w = _taps(tf, m)  # (J, 32, 4)
-            add = w[..., None] * v[None, :, None]  # (J, 32, 4, t)
-            # a lane's kept taps are distinct cells, the lanes' copies
-            # apart: each add below is one word's, in point order
-            for k in range(t):
-                for d in range(4):
-                    acc[rows[..., d], lane_idx[..., d], k,
-                        cells[..., d]] += add[..., d, k]
-        flat = acc[..., :m].reshape(J, LANES, t * m)
-        r = torch.arange(t * m)
-        part = torch.zeros(J, t * m)
-        for q in range(LANES):  # cell r's copies from copy r mod 32 on
-            part = part + flat[:, (r + q) % LANES, r]
-        U = U + part.reshape(J, t, m)
+        part = torch.zeros(J, t, m)
+        for k0, C in _tiles(t):
+            P = LANES // C
+            slot = torch.arange(P)
+            kk = torch.arange(C)[None, None, :]
+            acc = torch.zeros(J, P, C, m + 2 * PAD)  # lane (p, k)'s copy
+            for base in range(start, end, LANES):
+                for r in range(-(-LANES // P)):
+                    off = r * P + slot  # slot p's point in the batch
+                    i = base + off
+                    valid = (off < LANES) & (i < end)
+                    ic = i.clamp(max=n - 1)
+                    tf = torch.where(valid, tfrac[:, ic],
+                                     torch.tensor(-100.0))  # (J, P)
+                    v = torch.where(valid[:, None], V[ic, k0:k0 + C],
+                                    torch.zeros(()))  # (P, C)
+                    cells, w = _taps(tf, m)  # (J, P, 4)
+                    # a point's taps are distinct cells, the lanes' copies
+                    # apart: each add below is one word's, in point order
+                    for d in range(4):
+                        acc[jj, slot[None, :, None], kk,
+                            cells[..., d, None]] += (w[..., d, None]
+                                                     * v[None])
+            copies = acc.permute(0, 2, 1, 3)  # (J, C, P, m + 2 PAD)
+            tile = torch.zeros(J, C, m)
+            for u in range(P):  # cell c's copies from copy c mod P on
+                tile = tile + copies[:, :, (cell + u) % P, cell + PAD]
+            part[:, k0:k0 + C] = tile
+        U = U + part
     return U
 
 
@@ -106,28 +124,33 @@ def _tfrac(J, n, m, rng, kind):
 
 
 @pytest.mark.parametrize("m", [17, 100, 1024])
-@pytest.mark.parametrize("t", [1, 3, 8])
+@pytest.mark.parametrize("t", [1, 2, 3, 8, 9, 11, 33])
 @pytest.mark.parametrize("kind", ["crowded", "edges"])
 def test_k2_model_matches_plain(m, t, kind):
     """Crowded points, the grid's edges and padding, m not a multiple of
-    32 and m = 1024, t in {1, 3, 8}, three chunks of points: the model
-    against the port's plain version in float64; padding rows contribute
-    exactly zero (a huge V there leaves the model's output unchanged)."""
+    32 and m = 1024, t in {1, 2, 3, 8, 9, 11, 33} (one slot a lane at
+    t = 1 and 2, slots of t column lanes with idle lanes at t = 3, 9, 11, a
+    32-column tile and a one-column tile at t = 33), the wrapper's chunks
+    (22 of 32 points): the model against the port's plain version in
+    float64; padding rows contribute exactly zero (a huge V there leaves
+    the model's output unchanged)."""
     rng = np.random.default_rng(m * 10 + t)
     J, n = 3, 700
     tf = torch.from_numpy(_tfrac(J, n, m, rng, kind))
     V = torch.from_numpy(rng.standard_normal((n, t)).astype(np.float32))
-    got = _k2_model(tf, V, m, chunk=256)
+    chunk = cuda_interp.transpose_chunk(J, n, t, m)
+    assert -(-n // chunk) > 1
+    got = _k2_model(tf, V, m, chunk)
     want = cuda_interp.interp_transpose_plain(tf.double(), V.double(), m)
     assert got.shape == (J, t, m)
     assert _rel(got, want) <= 1e-5
     if kind == "edges":
         V2 = V.clone()
         V2[-20:] = 1e6
-        assert torch.equal(_k2_model(tf, V2, m, chunk=256), got)
+        assert torch.equal(_k2_model(tf, V2, m, chunk), got)
 
 
-@pytest.mark.parametrize("t", [1, 3, 8])
+@pytest.mark.parametrize("t", [1, 2, 3, 8, 9, 11, 33])
 def test_k2_model_matches_pallas(t):
     """test_pallas_interp's shape (J = 3, n = 1000, m = 64), points on
     [0, m - 1) where the Pallas plan and the dense plan keep the same
@@ -138,7 +161,8 @@ def test_k2_model_matches_pallas(t):
     tf = rng.uniform(0.0, m - 1.0, (J, n)).astype(np.float32)
     tf[:, :300] = _tfrac(J, 300, m, rng, "crowded")
     V = rng.standard_normal((n, t)).astype(np.float32)
-    got = _k2_model(torch.from_numpy(tf), torch.from_numpy(V), m, chunk=512)
+    got = _k2_model(torch.from_numpy(tf), torch.from_numpy(V), m,
+                    cuda_interp.transpose_chunk(J, n, t, m))
     n_pad = -(-n // pallas_interp.BN) * pallas_interp.BN
     tfp = np.pad(tf, ((0, 0), (0, n_pad - n)), constant_values=-100.0)
     VT = np.pad(V.T, ((0, 0), (0, n_pad - n)))
