@@ -25,6 +25,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ..utils.profiling import annotate, span
+
 _EPS = 1e-20
 
 
@@ -45,6 +47,7 @@ def _b_norm(B):
     return torch.where(b_norm < _EPS, torch.ones_like(b_norm), b_norm)
 
 
+@annotate("rpagp.bbmm.cg")
 def batched_pcg(A_mvm: Callable, B, M_inv: Optional[Callable] = None,
                 max_iters: int = 100, tol: float = 1e-2) -> CGResult:
     """Batched PCG for exactly max_iters iterations; returns the best
@@ -88,6 +91,7 @@ def batched_pcg(A_mvm: Callable, B, M_inv: Optional[Callable] = None,
         iterations=torch.tensor(max_iters))
 
 
+@annotate("rpagp.bbmm.cg")
 def batched_pcg_while(A_mvm: Callable, B, M_inv: Optional[Callable] = None,
                       max_iters: int = 200, tol: float = 1e-2) -> CGResult:
     """Batched PCG that stops at the first iteration where every column's
@@ -103,8 +107,10 @@ def batched_pcg_while(A_mvm: Callable, B, M_inv: Optional[Callable] = None,
     resid = torch.ones(B.shape[1], dtype=B.dtype, device=B.device)
     X_best, r_best = X, resid
     i = 0
-    # one host read per iteration: the stop flag
-    while i < max_iters and bool(torch.max(resid) > tol):
+    while i < max_iters:
+        with span("rpagp.sync"):  # one host read per iteration: the flag
+            if not bool(torch.max(resid) > tol):
+                break
         V = A_mvm(P)
         pv = torch.sum(P * V, dim=0)
         alpha = rz / _guard(pv)

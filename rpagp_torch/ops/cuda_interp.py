@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import span
 from . import _build
 
 # launches of the CUDA kernels, per entry point
@@ -158,18 +159,23 @@ def interp_apply_sum_cuda(tfrac, G):
 
 
 def interp_transpose(tfrac, V, m: int):
-    """U[j] = W_j^T V: tfrac (J, n), V (n, t) -> (J, t, m)."""
-    if tfrac.device.type == "cpu":
-        return interp_transpose_plain(tfrac, V, m)
-    if tfrac.device.type == "cuda":
-        return interp_transpose_cuda(tfrac, V, m)
+    """U[j] = W_j^T V: tfrac (J, n), V (n, t) -> (J, t, m). Its span
+    records (J, n, t, m)."""
+    with span("rpagp.op.interp_transpose",
+              (*tfrac.shape, V.shape[1], m)):
+        if tfrac.device.type == "cpu":
+            return interp_transpose_plain(tfrac, V, m)
+        if tfrac.device.type == "cuda":
+            return interp_transpose_cuda(tfrac, V, m)
     raise TypeError(f"interp_transpose: no kernel for device {tfrac.device}")
 
 
 def interp_apply_sum(tfrac, G):
-    """sum_j W_j G_j: tfrac (J, n), G (J, t, m) -> (n, t)."""
-    if tfrac.device.type == "cpu":
-        return interp_apply_sum_plain(tfrac, G)
-    if tfrac.device.type == "cuda":
-        return interp_apply_sum_cuda(tfrac, G)
+    """sum_j W_j G_j: tfrac (J, n), G (J, t, m) -> (n, t). Its span
+    records (J, n, t, m)."""
+    with span("rpagp.op.interp_apply_sum", (*tfrac.shape, *G.shape[1:])):
+        if tfrac.device.type == "cpu":
+            return interp_apply_sum_plain(tfrac, G)
+        if tfrac.device.type == "cuda":
+            return interp_apply_sum_cuda(tfrac, G)
     raise TypeError(f"interp_apply_sum: no kernel for device {tfrac.device}")

@@ -38,6 +38,7 @@ import torch
 
 from ..models import exact_gp
 from ..models.exact_gp import ModelSpec
+from ..utils.profiling import span
 from . import ski, ski_product
 from .block_chol import (blocked_cholesky, blocked_cholesky_safe,
                          blocked_solve_triangular)
@@ -61,7 +62,8 @@ def reset_stats():
 
 def _host_bool(flag) -> bool:
     stats["host_reads"] += 1
-    return bool(flag)
+    with span("rpagp.sync"):
+        return bool(flag)
 
 
 def use_grid_solver(spec: ModelSpec, n: int) -> bool:

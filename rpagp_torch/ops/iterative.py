@@ -26,6 +26,7 @@ import torch
 
 from ..models import exact_gp
 from ..models.exact_gp import ModelSpec
+from ..utils.profiling import annotate, span
 from . import cg as cg_mod
 from . import kernels, love, precond, ski, slq
 from .exact import LOG_2PI
@@ -68,8 +69,9 @@ def _make_A_mvm(spec: ModelSpec, params, buffers, x, noise, state=None):
     states = None if state is None else (state, state)
 
     def A_mvm(V):
-        return _kernel_mvm(spec, params, buffers, x, x, V, states=states,
-                           allow_pallas=True) + noise * V
+        with span("rpagp.bbmm.operator"):
+            return _kernel_mvm(spec, params, buffers, x, x, V, states=states,
+                               allow_pallas=True) + noise * V
 
     return A_mvm
 
@@ -137,9 +139,11 @@ def _fwd_impl(spec, params, buffers, x, y, eps_small, eps_big):
     S = res.solution[:, 1:]  # probe solves A^{-1} z_i
     MZ = M_inv(Z)  # m_i = M^{-1} z_i
     inv_quad = yc @ alpha
-    T = cg_mod.lanczos_tridiags_from_cg(res.alphas[:, 1:], res.betas[:, 1:])
-    logdet = slq.slq_logdet_from_tridiags(T, torch.sum(Z * MZ, dim=0),
-                                          pre_logdet)
+    with span("rpagp.bbmm.slq"):
+        T = cg_mod.lanczos_tridiags_from_cg(res.alphas[:, 1:],
+                                            res.betas[:, 1:])
+        logdet = slq.slq_logdet_from_tridiags(T, torch.sum(Z * MZ, dim=0),
+                                              pre_logdet)
     return inv_quad, logdet, alpha, S, MZ, res, state
 
 
@@ -165,6 +169,7 @@ class _InvQuadLogdet(torch.autograd.Function):
         return iq, ld
 
     @staticmethod
+    @annotate("rpagp.bbmm.backward")
     def backward(ctx, g_iq, g_ld):
         alpha, S, MZ, y, *leaves = ctx.saved_tensors
         spec, x = ctx.spec, ctx.x

@@ -20,6 +20,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from ..utils.profiling import annotate
 from .precond import cho_solve, cholesky_nan
 
 
@@ -90,6 +91,7 @@ def lanczos(A_mvm: Callable, v0, rank: int, fresh=None, rsum=None):
 
 
 @torch.no_grad()
+@annotate("rpagp.love.lanczos")
 def build_love_cache(A_mvm: Callable, y_centered, noise, rank: int,
                      alpha=None, fresh=None, rsum=None) -> LoveCache:
     """Lanczos cache plus mean cache; `alpha` (A^{-1} y_c) may come from

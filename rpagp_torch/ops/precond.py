@@ -18,6 +18,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.profiling import annotate
 from . import kernels
 from .kernels import KernelSpec
 
@@ -71,6 +72,7 @@ def cholesky_nan(A):
 
 
 @torch.no_grad()
+@annotate("rpagp.precond.build")
 def build_preconditioner(spec: KernelSpec, kparams, kbuffers, x, noise,
                          rank: int) -> Preconditioner:
     """Pivoted Cholesky plus the k x k factor of the Woodbury system."""
@@ -85,6 +87,7 @@ def build_preconditioner(spec: KernelSpec, kparams, kbuffers, x, noise,
     return Preconditioner(L=L, noise=noise, chol_small=C, logdet=logdet)
 
 
+@annotate("rpagp.precond.apply")
 def apply_inverse(pre: Preconditioner, R):
     """M^{-1} R for R (n, t), Woodbury through the k x k Cholesky."""
     w = cho_solve(pre.chol_small, pre.L.T @ R)

@@ -33,6 +33,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.profiling import annotate
 from ..utils.transforms import softplus
 from . import cuda_interp
 from .cuda_interp import cubic_kernel as _cubic_kernel
@@ -353,6 +354,7 @@ def interp_apply(state: SKIState, G):
     return _InterpApply.apply(state, G)
 
 
+@annotate("rpagp.op.toeplitz")
 def sym_toeplitz_matmul(col, U):
     """(J, m) Toeplitz first columns x (J, t, m) -> (J, t, m) through a 2m
     circulant embedding and batched real FFTs over the last axis.

@@ -18,7 +18,10 @@ Usage:
       --datasets protein --splits 10 --max_splits 1 --profile traces/
 
 --profile LOGDIR traces the first split with torch.profiler
-(utils.profiling.trace) and writes its Chrome-trace JSON into LOGDIR.
+(utils.profiling.trace) and writes its Chrome-trace JSON into LOGDIR,
+with the program's rpagp.* spans (utils.profiling.SPANS: the split's
+phases, the training step's loss, backward and update, CG, the
+preconditioner, SLQ, K2 / K3 and host syncs) on the kernels' clock.
 
 --distributed trains row-sharded over a process group (parallel/): NCCL
 with one card a rank, or gloo with --device cpu; --comp_shards c makes
@@ -46,7 +49,7 @@ from .ops.exact import gaussian_nll
 from .train import train_to_convergence
 from .utils import datasets as data_mod
 from .utils.config import ExperimentSpec, load_spec
-from .utils.profiling import trace
+from .utils.profiling import span, trace
 
 CSV_COLUMNS = [
     "dataset",
@@ -102,11 +105,13 @@ def run_split(exp: ExperimentSpec, split, seed: int = 0, device="cuda",
     n = x.shape[0]
 
     tP = time.perf_counter()
-    gen = torch.Generator().manual_seed(seed)
-    params, buffers = exact_gp.init_model(spec, x.shape[1], generator=gen,
-                                          device=device)
-    buffers = exact_gp.prepare_buffers(spec, params, buffers, x, y_train=y)
-    _sync(device)
+    with span("rpagp.split.prepare"):
+        gen = torch.Generator().manual_seed(seed)
+        params, buffers = exact_gp.init_model(spec, x.shape[1], generator=gen,
+                                              device=device)
+        buffers = exact_gp.prepare_buffers(spec, params, buffers, x,
+                                           y_train=y)
+        _sync(device)
     t_prepare = time.perf_counter() - tP
 
     # the dense Cholesky and grid solvers are deterministic; the BBMM
@@ -123,22 +128,24 @@ def run_split(exp: ExperimentSpec, split, seed: int = 0, device="cuda",
                 exact_gp.refresh_preconditioner(spec, p, a[0], a[1]),)
                 + a[1:])
     t0 = time.perf_counter()
-    res = train_to_convergence(
-        lambda p, b, xx, yy, *g: -mll_fn(spec, p, b, xx, yy, *g) / n,
-        params,
-        exp.train,
-        loss_args=(buffers, x, y),
-        sync_every=8,
-        generator=gen_probes,
-        args_refresh=refresh,
-    )
-    _sync(device)
+    with span("rpagp.split.train"):
+        res = train_to_convergence(
+            lambda p, b, xx, yy, *g: -mll_fn(spec, p, b, xx, yy, *g) / n,
+            params,
+            exp.train,
+            loss_args=(buffers, x, y),
+            sync_every=8,
+            generator=gen_probes,
+            args_refresh=refresh,
+        )
+        _sync(device)
     train_time = time.perf_counter() - t0
 
     tQ = time.perf_counter()
-    mu, var = posterior_fn(spec, res.params, buffers, x, y, xt)
-    rmse = float(torch.sqrt(torch.mean((mu - yt) ** 2)))
-    nll = float(gaussian_nll(yt, mu, var))
+    with span("rpagp.split.posterior"):
+        mu, var = posterior_fn(spec, res.params, buffers, x, y, xt)
+        rmse = float(torch.sqrt(torch.mean((mu - yt) ** 2)))
+        nll = float(gaussian_nll(yt, mu, var))
     t_post = time.perf_counter() - tQ
     if timings is not None:
         timings.update(prepare_s=t_prepare, train_s=train_time,
@@ -304,7 +311,9 @@ def main(argv=None):
                          "their plain versions")
     ap.add_argument("--profile", metavar="LOGDIR", default=None,
                     help="write a torch.profiler trace of the first split "
-                         "to LOGDIR (Chrome-trace JSON)")
+                         "to LOGDIR (Chrome-trace JSON); it carries the "
+                         "program's rpagp.* spans (utils.profiling.SPANS) "
+                         "beside the kernels")
     ap.add_argument("--distributed", action="store_true",
                     help="row-sharded training and posterior over the "
                          "process group (torchrun's ranks, else a world of "

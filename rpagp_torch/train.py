@@ -7,7 +7,10 @@ The loss stays on the device: losses are read in chunks of `sync_every`
 steps with one torch.stack(...).tolist() per chunk, never a float() per
 step (a per-step read stalls the device queue; in the JAX package it
 doubled the training loop). train_with_checkpointing reads every step's
-loss, as the JAX package's does.
+loss, as the JAX package's does. Each step runs in an `rpagp.train.step`
+span holding its refresh, loss, backward and update spans, and each host
+read in an `rpagp.sync` span (utils/profiling.py: open only while a
+profiler records).
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch
 
 from .utils.checkpoint import Checkpointer, load_checkpoint
 from .utils.config import TrainConfig, make_optimizer
+from .utils.profiling import span
 
 _EMA_DECAY = 0.8  # the stochastic tracker's EMA (rpagp/train.py:199)
 
@@ -94,7 +98,9 @@ def _warn_if_frozen(params_prev, params):
     start (ops/cg.py). One host read for all leaves together."""
     moved = torch.stack([torch.any(a != b) for a, b in
                          zip(_leaves(params_prev), _leaves(params))]).any()
-    if not bool(moved):
+    with span("rpagp.sync"):
+        moved = bool(moved)
+    if not moved:
         print(
             "[warn] training stalled at step 0: the optimizer step changed "
             "no parameter (gradient exactly zero). With the iterative MLL "
@@ -157,35 +163,41 @@ def train_to_convergence(
     pending = []  # (device loss, params it was evaluated at)
     refreshes = 0
     for i in range(max_iters):
-        if args_refresh is not None and i > 0 and i % args_refresh[0] == 0:
-            with torch.no_grad():
-                loss_args = args_refresh[1](params, loss_args)
-            refreshes += 1
-        pprev = _tree_map(lambda t: t.detach().clone(), params)
-        opt.zero_grad(set_to_none=True)
-        loss = loss_fn(params, *loss_args, *extra)
-        loss.backward()
-        if grad_hook is not None:
-            grad_hook(_leaves(params))
-        opt.step()
-        sched.step()
-        if i == 0:
-            _warn_if_frozen(pprev, params)
-        pending.append((loss.detach(), pprev))
-        if len(pending) < sync_every and i < max_iters - 1:
-            continue  # keep the device queue full
-        chunk = torch.stack([dl for dl, _ in pending]).tolist()
-        for lf, (_, pp) in zip(chunk, pending):
-            losses.append(lf)
-            if not math.isfinite(lf):
-                diverged = True  # return the best params seen
+        with span("rpagp.train.step"):
+            if args_refresh is not None and i > 0 \
+                    and i % args_refresh[0] == 0:
+                with torch.no_grad(), span("rpagp.train.refresh"):
+                    loss_args = args_refresh[1](params, loss_args)
+                refreshes += 1
+            pprev = _tree_map(lambda t: t.detach().clone(), params)
+            opt.zero_grad(set_to_none=True)
+            with span("rpagp.train.loss"):
+                loss = loss_fn(params, *loss_args, *extra)
+            with span("rpagp.train.backward"):
+                loss.backward()
+                if grad_hook is not None:
+                    grad_hook(_leaves(params))
+            with span("rpagp.train.update"):
+                opt.step()
+                sched.step()
+            if i == 0:
+                _warn_if_frozen(pprev, params)
+            pending.append((loss.detach(), pprev))
+            if len(pending) < sync_every and i < max_iters - 1:
+                continue  # keep the device queue full
+            with span("rpagp.sync"):
+                chunk = torch.stack([dl for dl, _ in pending]).tolist()
+            for lf, (_, pp) in zip(chunk, pending):
+                losses.append(lf)
+                if not math.isfinite(lf):
+                    diverged = True  # return the best params seen
+                    break
+                if tracker.update(lf, pp):
+                    converged = True
+                    break
+            pending.clear()
+            if converged or diverged:
                 break
-            if tracker.update(lf, pp):
-                converged = True
-                break
-        pending.clear()
-        if converged or diverged:
-            break
     best = _tree_map(lambda t: t.detach(), tracker.best_params)
     return TrainResult(
         params=best, losses=losses, iterations=len(losses),
@@ -306,20 +318,25 @@ def train_with_checkpointing(
     t0 = time.perf_counter()
     converged = False
     for i in range(start, max_iters):
-        pprev = _tree_map(lambda t: t.detach().clone(), params)
-        opt.zero_grad(set_to_none=True)
-        loss = loss_fn(params, *loss_args, *extra)
-        loss.backward()
-        opt.step()
-        lf = float(loss.detach())
-        losses.append(lf)
-        if not math.isfinite(lf):
-            break
-        # pair the loss with the params it was evaluated at
-        converged = tracker.update(lf, pprev)
-        save(i + 1)
-        if converged:
-            break
+        with span("rpagp.train.step"):
+            pprev = _tree_map(lambda t: t.detach().clone(), params)
+            opt.zero_grad(set_to_none=True)
+            with span("rpagp.train.loss"):
+                loss = loss_fn(params, *loss_args, *extra)
+            with span("rpagp.train.backward"):
+                loss.backward()
+            with span("rpagp.train.update"):
+                opt.step()
+            with span("rpagp.sync"):
+                lf = float(loss.detach())
+            losses.append(lf)
+            if not math.isfinite(lf):
+                break
+            # pair the loss with the params it was evaluated at
+            converged = tracker.update(lf, pprev)
+            save(i + 1)
+            if converged:
+                break
     return TrainResult(
         params=_tree_map(lambda t: t.detach(), tracker.best_params),
         losses=losses, iterations=len(losses) - start, converged=converged,
@@ -338,9 +355,13 @@ def train_fixed(loss_fn: Callable, params, lr: float = 0.1,
     opt = torch.optim.Adam(_leaves(params), lr=lr)
     losses = []
     for _ in range(num_iters):
-        opt.zero_grad(set_to_none=True)
-        loss = loss_fn(params)
-        loss.backward()
-        opt.step()
-        losses.append(loss.detach())
+        with span("rpagp.train.step"):
+            opt.zero_grad(set_to_none=True)
+            with span("rpagp.train.loss"):
+                loss = loss_fn(params)
+            with span("rpagp.train.backward"):
+                loss.backward()
+            with span("rpagp.train.update"):
+                opt.step()
+            losses.append(loss.detach())
     return _tree_map(lambda t: t.detach(), params), torch.stack(losses)
