@@ -36,38 +36,91 @@
 // run in further sweeps that add to out. No atomics: every sum has a
 // fixed order (at t = 1 one FMA a tap, over the components and then the
 // taps in order), so repeats are bit for bit the same.
-// K2 is a scatter whose work follows the taps. A warp takes a chunk of
-// points of one component and a tile of C <= 32 of the t columns: one
-// column a tile at t <= 2 (so that each column of grid prepare's
-// U^T [y, 1] adds in a one-column call's order, the same bits), all t at
-// t <= 32, else tiles of 32 and one of the rest (a second launch). Its
+// K2 is a scatter: each (point, component, column) adds 4 taps into the
+// m cells. Its bytes are K3's (0.064 ms at the flagship's t = 9), its
+// FMAs 2.7 GFLOP at t = 9 (0.04 ms), so on the H100 it is bound by how
+// the taps reach the cells, not by HBM. Three routes, by shape; each
+// block or warp writes its chunk's (t, m) partial and a last kernel adds
+// the chunks' partials in chunk order: no atomics, the same bits on every
+// run.
+//
+// Runs (`runs_route`: 3 <= t <= runs_width(m), all t columns a block,
+// where the blocks, one a (component, tile of points), fill the card).
+// Adding each (point, column)'s 4 taps into shared memory costs four
+// read-modify-writes (the slots route below: 1.37 ms at the flagship's
+// t = 9). This route sorts instead: a block of RUNS_NT threads takes one
+// component and a chunk of points, in tiles of RUNS_T = 1024 points, and
+// for each tile
+//  1. stages its V rows at an odd row stride, so random rows spread over
+//     the banks: one bulk copy by the copy engine, completing on an
+//     mbarrier, where the rows are one 16-byte aligned block (t odd),
+//     else cp.async of 4 bytes; the copy runs under the sort, the next
+//     tile's tfrac is in flight in registers meanwhile, and the second
+//     block an SM (two fit at m = 256, t = 9) covers the rest;
+//  2. counting-sorts the tile by base cell (tfrac clamped to [-3, m + 1],
+//     NaN to -3; m + 5 bins): warp w holds points w T/4 .. (w + 1) T/4 -
+//     1, in rounds of 32 it counts them per bin with __match_any_sync
+//     (the round's first lane of a bin adds the bin's lanes, the others
+//     take their rank from the lanes below them), so counts and ranks
+//     need no atomics; an exclusive scan over (bin, warp) gives each
+//     point its slot, in point order within a bin (a stable sort), and
+//     the scatter writes (local row, clamped tfrac) there, at index
+//     e + e / 32 (so the 32 lanes of the walk, each on its own 8 entries,
+//     sit on distinct banks);
+//  3. walks the sorted tile, thread l on entries lo + l L / NT .. (the L
+//     entries of bins 1 .. m + 3: a split by points, not by cells, since
+//     the densest cell holds 3-4x the mean), summing each piece (a run of
+//     one base cell inside its entries) in registers, w_k(frac) V[row,
+//     col] for the 4 taps and t columns, in the sorted (point) order, on
+//     top of the block's per-(base cell, tap, column) sum S[cell], which
+//     no other piece of the tile touches, and storing it back once;
+//  4. a run split between threads: its later pieces start from zero and
+//     are left in HB, and after a barrier the thread holding its start
+//     adds them in thread order (a table of each thread's first bin says
+//     whose they are) before storing it into S.
+// At the chunk's end the 4 taps' sums of each cell are added in tap order
+// into the partial. Each sum has a fixed order (point order inside a run,
+// tile order in S, chunk order in U), so a repeat gives the same bits.
+// Bins 0 (base cell -3) and m + 4 (base cell m + 1) hold the points whose
+// 4 taps all lie off the grid (the -100 padding, NaN, a ragged tile's
+// empty slots): they are sorted but not walked, and a tap of a walked
+// point that lands off the grid goes into a sum the fold never reads, so
+// they add exactly zero. What bounds it (H100, t = 9, flagship tfrac,
+// 0.78 ms a call): shared-memory instructions. About half of the time is
+// the sort (ranks, scan, scatter, 5 barriers a tile); in the walk a
+// piece's store and the next piece's load (2 C 16-byte accesses) are
+// issued by the whole warp whenever any of its lanes ends a piece, which
+// happens in nearly every step of runs 8 entries long, so the writes cost
+// about as much as the gathers and FMAs of the walk; a (point, column)
+// costs about one shared load and a share of those writes, where the
+// slots route paid four read-modify-writes. V is read by the J blocks of
+// a chunk side by side (block j + J chunk), so from HBM about once. Where
+// the blocks would not fill the card (sml's 3,723 points) or t is wider
+// than a block (the posteriors' t = 512-513), the slots route is faster
+// and takes the call.
+//
+// Slots (t >= 3 that the runs route does not take: tiles of 32 columns
+// and one of the rest) and own (t <= 2: one column a tile, so that each
+// column of grid prepare's U^T [y, 1] adds in a one-column call's order,
+// the same bits; also a rest of one column). A warp takes a chunk of
+// points of one component and a tile of C <= 32 of the t columns. Its
 // lanes are P = floor(32 / C) point slots of C column lanes, lane p C + k
 // (lanes past P C idle): lane (p, k) adds the taps of slot p's points for
 // column k0 + k into its own copy of the m cells in shared memory, so no
-// two lanes ever add to one word and crowded points cost no more than
-// spread ones. The copy of lane l holds cell c at word (c + 4) 32 + l, so
-// the 32 lanes of any access sit on 32 different banks, and a warp holds
-// 32 (m + 8) floats at any C: a tile of 32 columns costs no more
-// occupancy than one column. At P < 32 a batch of 32 points runs in
-// ceil(32 / P) rounds: lane l computes point l's base cell and weights
-// once and stages them in shared memory, and in round r slot p takes
-// point r P + p, reading V[i, k0 + k] in V's own (n, t) row-major layout
-// (at C = t a round's live lanes read P C consecutive floats). At P = 32
-// lane l takes points l, l + 32, .. itself. tfrac is clamped to [-3,
-// m + 1] (NaN to -3): on that range the clamp changes nothing, and off it
-// every tap, like a tap off the grid, lands in the padding cells -4 .. -1
-// or m .. m + 3, which no sum reads, so there is no bounds test and no
-// branch. At the end lane l adds the P copies of each of its (column,
-// cell) outputs, starting at copy c mod P (one bank a lane), into the
-// chunk's partial (t, m), and a last kernel adds the chunks' partials in
-// chunk order: no atomics, the same bits on every run, each sum in an
-// order fixed by the point index. A (point, column) costs four shared
-// read-modify-writes, so the scatter is bound by the shared-memory pipe,
-// which on the H100 takes about two cycles a 32-lane 4-byte access
-// (scripts/torch_ab_k2k5.py measures it), and by the latency of that
-// chain with the few warps the copies leave an SM (6 at m = 256). Blocks
-// hold two independent warps (faster than one-warp blocks at t = 1 on
-// the H100).
+// two lanes ever add to one word. The copy of lane l holds cell c at word
+// (c + 4) 32 + l, so the 32 lanes of any access sit on 32 different banks,
+// and a warp holds 32 (m + 8) floats at any C. At P < 32 a batch of 32
+// points runs in ceil(32 / P) rounds: lane l computes point l's base cell
+// and weights once and stages them in shared memory, and in round r slot p
+// takes point r P + p, reading V[i, k0 + k] in V's own (n, t) row-major
+// layout. At P = 32 lane l takes points l, l + 32, .. itself. tfrac is
+// clamped as above, and every tap off the grid lands in the padding cells
+// -4 .. -1 or m .. m + 3, which no sum reads. At the end lane l adds the P
+// copies of each of its (column, cell) outputs, starting at copy c mod P,
+// into the chunk's partial. A (point, column) costs four shared
+// read-modify-writes, so these routes are bound by the shared-memory pipe
+// (scripts/torch_ab_k2k5.py --smem measures it). Blocks hold two
+// independent warps.
 
 #include <climits>
 #include <cuda_runtime.h>
@@ -83,6 +136,61 @@ constexpr int K2_OWN_NB = 16;  // K2, one-column tiles: batches in flight
 // copies (fewer where their shared memory does not fit)
 constexpr int K2_WARPS = 2;
 constexpr size_t K2_SMEM = 227 * 1024;  // shared memory a block may hold
+
+// 4-byte asynchronous copy global -> shared; with in = false it reads
+// nothing and writes a zero
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool in) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(in ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// an mbarrier in shared memory: init (one arrival a phase), arrive with
+// the bytes a bulk copy will bring, wait for the phase of parity `parity`
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+               "fence.mbarrier_init.release.cluster;\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar,
+                                            unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+// `bytes` (a multiple of 16) from global to shared by the copy engine,
+// both 16-byte aligned, completing on bar; the fence orders the block's
+// earlier reads of dst before the engine's writes
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "fence.proxy.async.shared::cta;\n"
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
 
 __device__ __forceinline__ float inner_w(float s) {
   return ((1.5f * s - 2.5f) * s) * s + 1.0f;
@@ -295,6 +403,287 @@ transpose_slots_kernel(const float* __restrict__ tfrac,
               P, m);
 }
 
+// ------------------------------------------------------------- K2 runs --
+// (the note at the top of this file)
+
+constexpr int RUNS_NT = 128;                 // threads a block
+constexpr int RUNS_NW = RUNS_NT / 32;        // warps a block
+constexpr int RUNS_T = 1024;                 // points a tile
+constexpr int RUNS_R = RUNS_T / RUNS_NT;     // points a thread ranks
+constexpr int RUNS_E = RUNS_T + RUNS_T / 32;  // sorted entries, skewed
+constexpr int RUNS_C_MAX = 16;               // columns a tile at most
+constexpr int RUNS_MIN_BLOCKS = 2 * 132;     // two blocks an SM of the H100
+
+// dynamic shared memory of a block: S (m + 5 bins of 4 C floats), HB (a
+// piece of 4 C floats a thread, at an odd count of 16-byte words), the V
+// tile (RUNS_T rows of C | 1 floats), the sorted tfrac, the per-warp
+// counts (m + 5 ints a warp) and the sorted rows (16-bit)
+size_t runs_smem(int m, int C) {
+  const size_t nb = m + 5, odd = C | 1;
+  return 4 * (nb * 4 * C + (size_t)RUNS_NT * odd * 4 + (size_t)RUNS_T * odd +
+              RUNS_E + RUNS_NW * nb) +
+         2 * (size_t)RUNS_E;
+}
+
+// the columns a runs block carries at m: the most, up to RUNS_C_MAX, whose
+// block fits in K2_SMEM with 1 KB to spare for its static shared memory
+// (16 at m = 256, 9 at m = 1024)
+int runs_width(int m) {
+  int C = RUNS_C_MAX;
+  while (C > 3 && runs_smem(m, C) + 1024 > K2_SMEM) --C;
+  return C;
+}
+
+// the runs route takes a call whose t >= 3 columns fit one block and
+// whose blocks, one a (component, tile of points), fill the card
+bool runs_route(int J, int n, int t, int m) {
+  return t >= 3 && t <= runs_width(m) &&
+         (long long)J * ((n + RUNS_T - 1) / RUNS_T) >= RUNS_MIN_BLOCKS;
+}
+
+// the index of sorted entry e: e + e / 32, so that 32 lanes each on its
+// own run of 8 consecutive entries read 32 distinct banks
+__device__ __forceinline__ int skew(int e) { return e + (e >> 5); }
+
+// block b: component b mod J, chunk b / J of the points, all C = t
+// columns; the J blocks of one chunk run side by side and share its V
+// rows through L2. vec: C is odd and every tile's rows start 16-byte
+// aligned, so that a tile of rows is one block of floats at the tile's
+// row stride
+template <int C>
+__global__ void __launch_bounds__(RUNS_NT, 2)
+transpose_slots_kernel_runs(const float* __restrict__ tfrac,
+                            const float* __restrict__ V,
+                            float* __restrict__ partial, int J, int n,
+                            int m, int chunk, int vec) {
+  constexpr int SC = C | 1, HQ = C | 1, W4 = 4 * C;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int wsum[RUNS_NW];
+  __shared__ int span[2];
+  __shared__ int fbin[RUNS_NT];  // each thread's first bin in the walk
+  __shared__ unsigned long long vbar;  // the V tile's bulk copy
+  const int NB = m + 5;
+  float* const S = smem;
+  float4* const HB = reinterpret_cast<float4*>(S + (size_t)NB * W4);
+  float* const Vt = reinterpret_cast<float*>(HB + RUNS_NT * HQ);
+  float* const stf = Vt + RUNS_T * SC;
+  int* const hist = reinterpret_cast<int*>(stf + RUNS_E);
+  unsigned short* const srow =
+      reinterpret_cast<unsigned short*>(hist + RUNS_NW * NB);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int b = blockIdx.x;
+  const int j = b % J, ch = b / J;
+  const int start = ch * chunk, end = min(n, start + chunk);
+  const float* tf = tfrac + (size_t)j * n;
+  const float hi = (float)(m + 1);
+  int* const hw = hist + warp * NB;
+  const unsigned below = (1u << lane) - 1u;
+  const int r0 = warp * (RUNS_T / RUNS_NW) + lane;  // local row of round 0
+
+  for (int e = tid; e < NB * W4; e += RUNS_NT) S[e] = 0.0f;
+  float tv[RUNS_R];
+  auto load_tf = [&](int t0) {
+#pragma unroll
+    for (int r = 0; r < RUNS_R; ++r) {
+      const int i = t0 + r0 + 32 * r;
+      tv[r] = i < end ? __ldcs(tf + i) : -100.0f;
+    }
+  };
+  auto bin_of = [&](int e) { return (int)floorf(stf[skew(e)]) + 3; };
+  // a run's 4 C sums: S[bin] into acc, acc into S[bin] or into HB (the
+  // piece of a run continued from the thread before, for its owner)
+  auto load_s = [&](float* acc, int bin) {
+    const float4* s4 = reinterpret_cast<const float4*>(S + (size_t)bin * W4);
+#pragma unroll
+    for (int u = 0; u < C; ++u) {
+      const float4 a = s4[u];
+      acc[4 * u] = a.x;
+      acc[4 * u + 1] = a.y;
+      acc[4 * u + 2] = a.z;
+      acc[4 * u + 3] = a.w;
+    }
+  };
+  auto store = [&](float4* dst, const float* acc) {
+#pragma unroll
+    for (int u = 0; u < C; ++u)
+      dst[u] = make_float4(acc[4 * u], acc[4 * u + 1], acc[4 * u + 2],
+                           acc[4 * u + 3]);
+  };
+  auto store_s = [&](const float* acc, int bin) {
+    store(reinterpret_cast<float4*>(S + (size_t)bin * W4), acc);
+  };
+
+  if (vec && tid == 0) mbar_init(&vbar);
+  __syncthreads();
+  unsigned tiles_done = 0;
+  load_tf(start);
+  for (int t0 = start; t0 < end; t0 += RUNS_T) {
+    const int P = min(RUNS_T, end - t0);
+    // 1. the tile's V rows at row stride SC
+    if (vec) {  // one block of floats, by the copy engine
+      const float* src = V + (size_t)t0 * C;
+      const int total = P * C, n4 = total >> 2;
+      if (tid == 0) {
+        mbar_expect(&vbar, 16u * n4);
+        if (n4) bulk_copy(Vt, src, 16u * n4, &vbar);
+      }
+      for (int e = 4 * n4 + tid; e < total; e += RUNS_NT)
+        cp_async4(Vt + e, src + e, true);
+    } else {
+      for (int e = tid; e < P * C; e += RUNS_NT) {
+        const int r = e / C, c = e - r * C;
+        cp_async4(Vt + r * SC + c, V + (size_t)(t0 + r) * C + c, true);
+      }
+    }
+    // 2. bins (slots past P in bin 0); the next tile's tfrac goes out
+    int bin[RUNS_R], rank[RUNS_R];
+    float tc[RUNS_R];
+#pragma unroll
+    for (int r = 0; r < RUNS_R; ++r) {
+      tc[r] = r0 + 32 * r < P ? fminf(fmaxf(tv[r], -3.0f), hi) : -3.0f;
+      bin[r] = (int)floorf(tc[r]) + 3;
+    }
+    load_tf(t0 + RUNS_T);
+    // 3. this warp's counts and each point's rank among its warp's points
+    // of the same bin, in point order
+    for (int e = lane; e < NB; e += 32) hw[e] = 0;
+    __syncwarp();
+#pragma unroll
+    for (int r = 0; r < RUNS_R; ++r) {
+      const unsigned same = __match_any_sync(0xffffffffu, bin[r]);
+      const int before = hw[bin[r]];
+      __syncwarp();
+      if ((same & below) == 0) hw[bin[r]] = before + __popc(same);
+      __syncwarp();
+      rank[r] = before + __popc(same & below);
+    }
+    __syncthreads();
+    // 4. counts -> first slots, in (bin, warp) order: thread tid takes bins
+    // tid BPT .. + BPT - 1
+    {
+      const int bpt = (NB + RUNS_NT - 1) / RUNS_NT;
+      const int b0 = min(NB, tid * bpt), b1 = min(NB, b0 + bpt);
+      int tot = 0;
+      for (int x = b0; x < b1; ++x)
+#pragma unroll
+        for (int w = 0; w < RUNS_NW; ++w) tot += hist[w * NB + x];
+      int inc = tot;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, inc, o);
+        if (lane >= o) inc += v;
+      }
+      if (lane == 31) wsum[warp] = inc;
+      __syncthreads();
+      int base = inc - tot;
+      for (int w = 0; w < warp; ++w) base += wsum[w];
+      for (int x = b0; x < b1; ++x) {
+        if (x == 1) span[0] = base;
+        if (x == NB - 1) span[1] = base;
+#pragma unroll
+        for (int w = 0; w < RUNS_NW; ++w) {
+          const int c = hist[w * NB + x];
+          hist[w * NB + x] = base;
+          base += c;
+        }
+      }
+    }
+    __syncthreads();
+    // 5. the stable scatter of (local row, clamped tfrac)
+#pragma unroll
+    for (int r = 0; r < RUNS_R; ++r) {
+      const int x = skew(hw[bin[r]] + rank[r]);
+      srow[x] = (unsigned short)(r0 + 32 * r);
+      stf[x] = tc[r];
+    }
+    cp_async_wait_all();
+    if (vec) mbar_wait(&vbar, tiles_done & 1);
+    ++tiles_done;
+    __syncthreads();
+    // 6. the walk over bins 1 .. m + 3: thread tid on entries [s, e1)
+    const int lo = span[0], hi_e = span[1], L = hi_e - lo;
+    const int s = lo + tid * L / RUNS_NT, e1 = lo + (tid + 1) * L / RUNS_NT;
+    float acc[W4];
+    bool owner = false;
+    int cur = s < e1 ? bin_of(s) : -1;  // -1: no entries
+    fbin[tid] = cur;
+    if (s < e1) {
+      const bool cin = s > lo && bin_of(s - 1) == cur;
+      const bool cout = e1 < hi_e && bin_of(e1) == bin_of(e1 - 1);
+      // a piece this thread writes adds on top of S[cur]; the piece of a
+      // run continued from the thread before starts from zero
+      bool first = true;
+      if (cin) {
+#pragma unroll
+        for (int u = 0; u < W4; ++u) acc[u] = 0.0f;
+      } else {
+        load_s(acc, cur);
+      }
+      for (int e = s; e < e1; ++e) {
+        const int x = skew(e);
+        const float tfe = stf[x];
+        const float* vr = Vt + (int)srow[x] * SC;
+        const float fl = floorf(tfe);
+        const int be = (int)fl + 3;
+        if (be != cur) {  // the piece of bin cur ended before e
+          store(first && cin ? HB + tid * HQ
+                             : reinterpret_cast<float4*>(S + (size_t)cur * W4),
+                acc);
+          first = false;
+          cur = be;
+          load_s(acc, cur);
+        }
+        const float f = tfe - fl, g = 1.0f - f;
+        const float w0 = outer_w(1.0f + f), w1 = inner_w(f), w2 = inner_w(g),
+                    w3 = outer_w(1.0f + g);
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const float v = vr[c];
+          acc[c] = fmaf(w0, v, acc[c]);
+          acc[C + c] = fmaf(w1, v, acc[C + c]);
+          acc[2 * C + c] = fmaf(w2, v, acc[2 * C + c]);
+          acc[3 * C + c] = fmaf(w3, v, acc[3 * C + c]);
+        }
+      }
+      owner = !(first && cin) && cout;
+      if (!owner)
+        store(first && cin ? HB + tid * HQ
+                           : reinterpret_cast<float4*>(S + (size_t)cur * W4),
+              acc);
+    }
+    __syncthreads();
+    // 7. a run split between threads: its first thread, holding S[bin] and
+    // its own piece, adds the others' pieces in thread order and writes it
+    if (owner) {
+      for (int l = tid + 1; l < RUNS_NT; ++l) {
+        const int bl = fbin[l];
+        if (bl < 0) continue;  // no entries
+        if (bl != cur) break;
+        const float4* h4 = HB + l * HQ;
+#pragma unroll
+        for (int u = 0; u < C; ++u) {
+          const float4 h = h4[u];
+          acc[4 * u] += h.x;
+          acc[4 * u + 1] += h.y;
+          acc[4 * u + 2] += h.z;
+          acc[4 * u + 3] += h.w;
+        }
+      }
+      store_s(acc, cur);
+    }
+  }
+  __syncthreads();
+  // cell c = sum over taps k of S[bin c + 4 - k][k]
+  float* out = partial + ((size_t)ch * J + j) * C * m;
+  for (int o = tid; o < C * m; o += RUNS_NT) {
+    const int c = o / C, k = o - c * C;
+    const float* sb = S + (size_t)(c + 1) * W4 + k;
+    out[(size_t)k * m + c] =
+        ((sb[3 * W4] + sb[2 * W4 + C]) + sb[W4 + 2 * C]) + sb[3 * C];
+  }
+}
+
 // raises a kernel's dynamic shared memory limit to `bytes` on the current
 // device, once a device (a limit is set, not read, on every call)
 template <auto kernel>
@@ -353,6 +742,34 @@ int k2_tiles(const float* tfrac, const float* V, float* partial, int J,
 #undef K2_SLOTS
 }
 
+// K2's runs route: one block a (component, chunk), all t = C columns
+template <int C>
+int runs_launch(const float* tfrac, const float* V, float* partial, int J,
+                int n, int m, int chunk, int nchunk, cudaStream_t s) {
+  const size_t bytes = runs_smem(m, C);
+  const cudaError_t e = k2_smem<transpose_slots_kernel_runs<C>>(bytes);
+  if (e != cudaSuccess) return (int)e;
+  const int vec = (C & 1) && chunk % 4 == 0 &&
+                  (reinterpret_cast<size_t>(V) & 15) == 0;
+  transpose_slots_kernel_runs<C><<<J * nchunk, RUNS_NT, bytes, s>>>(
+      tfrac, V, partial, J, n, m, chunk, vec);
+  return (int)cudaGetLastError();
+}
+
+int k2_runs(const float* tfrac, const float* V, float* partial, int J,
+            int n, int t, int m, int chunk, int nchunk, cudaStream_t s) {
+#define K2_RUNS(C)                                                         \
+  case C:                                                                  \
+    return runs_launch<C>(tfrac, V, partial, J, n, m, chunk, nchunk, s)
+  switch (t) {
+    K2_RUNS(3); K2_RUNS(4); K2_RUNS(5); K2_RUNS(6); K2_RUNS(7); K2_RUNS(8);
+    K2_RUNS(9); K2_RUNS(10); K2_RUNS(11); K2_RUNS(12); K2_RUNS(13);
+    K2_RUNS(14); K2_RUNS(15); K2_RUNS(16);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef K2_RUNS
+}
+
 // U[e] = sum_ch partial[ch, e], in chunk order
 __global__ void reduce_partials_kernel(const float* __restrict__ partial,
                                        float* __restrict__ U, int nchunk,
@@ -372,18 +789,6 @@ constexpr int K3_JC = 4;  // t = 1: components whose tfrac loads go out together
 constexpr int K3_JC_ROWS = 4;  // t >= 2: the same
 constexpr int K3_TC = 8;  // columns a pass of the rows table
 constexpr int K3_SMEM = 220 * 1024;  // table bytes a block may hold
-
-// 4-byte asynchronous copy global -> shared; with in = false it reads
-// nothing and writes a zero
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool in) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(in ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
 
 __device__ __forceinline__ float lane_of(float4 v, int p) {
   return p == 0 ? v.x : p == 1 ? v.y : p == 2 ? v.z : v.w;
@@ -708,11 +1113,11 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 
 // tfrac (J, n), V (n, t) row-major, partial (nchunk, J, t, m) scratch, U
 // (J, t, m), all contiguous; any t, 1 <= m <= M_MAX, nchunk = ceil(n /
-// chunk). One scatter launch of J tiles nchunk one-warp blocks (at t > 32
-// a second for the narrower last tile), then the chunks' sum. Tiles: one
-// column each at t <= 2, all t columns at 3 <= t <= 32, else 32 columns
-// and the rest. Returns cudaGetLastError() or the error of a refused
-// attribute.
+// chunk). One scatter launch for each width of column tile, then the
+// chunks' sum. Tiles: one column each at t <= 2 (own); all t columns where
+// `runs_route` takes the call (runs); else all t columns at t <= 32
+// (slots), else 32 columns and the rest (a rest of one on own). Returns
+// cudaGetLastError() or the error of a refused attribute.
 extern "C" int rpagp_interp_transpose(const float* tfrac, const float* V,
                                       float* partial, float* U, int J, int n,
                                       int t, int m, int chunk, void* stream) {
@@ -727,6 +1132,8 @@ extern "C" int rpagp_interp_transpose(const float* tfrac, const float* V,
   int err;
   if (t <= 2) {
     err = k2_tiles(tfrac, V, partial, J, n, t, m, chunk, nc, 0, t, 1, s);
+  } else if (runs_route(J, n, t, m)) {
+    err = k2_runs(tfrac, V, partial, J, n, t, m, chunk, nc, s);
   } else if (t <= K2_TILE) {
     err = k2_tiles(tfrac, V, partial, J, n, t, m, chunk, nc, 0, 1, t, s);
   } else {

@@ -16,21 +16,37 @@ are exact adjoints of each other.
 A CPU tensor takes the plain version (the blocked dense plan of
 ops/ski.py: the (J, block, m) interpolation matrix built from tfrac,
 contracted with einsum); a CUDA tensor launches the kernel; anything else
-raises. Each takes any t in one launch, V in its (n, t) layout. Both take
+raises. Each takes any t in one call, V in its (n, t) layout. Both take
 m <= M_MAX: K3's table of one component in shared memory (33 KB at
-m = 1024, t > 4) and K2's per-lane accumulator copies (132 KB a warp at
-m = 1024) are sized for it. Past it the wrappers raise.
+m = 1024, t > 4), K2's per-lane accumulator copies (132 KB a warp at
+m = 1024) and its per-block run sums (the runs route takes at most
+runs_width(m) columns, 9 at m = 1024) are sized for it. Past it the
+wrappers raise.
+
+K2 takes one of three routes by shape (`transpose_tiles`,
+csrc/interp.cu): "own" (one-column tiles, t <= 2), "runs" (a per-tile
+sort by cell with run sums in registers, all 3 <= t <= 16 columns a block,
+where its blocks fill the card) and "slots" (tiles of up to 32 columns,
+otherwise); `launches` counts each call and, under
+"interp_transpose.<route>", each route it launched. The K2 span records
+the route after (J, n, t, m) ("plain" on the CPU).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from ..utils.profiling import span
 from . import _build
 
-# launches of the CUDA kernels, per entry point
-launches = {"interp_transpose": 0, "interp_apply_sum": 0}
+# K2's routes (csrc/interp.cu), in the order a call launches them
+ROUTES = ("own", "runs", "slots")
+
+# launches of the CUDA kernels, per entry point and K2 route
+launches = {"interp_transpose": 0, "interp_apply_sum": 0,
+            **{f"interp_transpose.{r}": 0 for r in ROUTES}}
 
 M_MAX = 1024  # csrc/interp.cu M_MAX: the grid cells both kernels take
 _DENSE_BLOCK = 4096  # plain version: points per dense W block
@@ -47,6 +63,65 @@ _K2_WAVES, _K2_MIN_ROUNDS = 2, 256
 _K2_SCRATCH_FLOATS = 64 << 20  # 256 MB
 
 
+# K2's runs route (csrc/interp.cu RUNS_*): blocks of RUNS_NT threads, one a
+# (component, chunk), on tiles of RUNS_T points, all t <= RUNS_C_MAX
+# columns, taken where such blocks fill the card (RUNS_MIN_BLOCKS); its
+# chunks fill the card _RUNS_WAVES times where the points allow
+RUNS_NT, RUNS_T, RUNS_C_MAX = 128, 1024, 16
+RUNS_MIN_BLOCKS = 2 * _K2_SMS
+_RUNS_WAVES = 3
+_RUNS_BLOCKS_MAX = 4  # blocks an SM where shared memory allows more
+
+
+def _runs_smem(m: int, C: int) -> int:
+    """csrc/interp.cu `runs_smem`: a runs block's dynamic shared memory."""
+    nb, odd = m + 5, C | 1
+    entries = RUNS_T + RUNS_T // 32
+    return (4 * (nb * 4 * C + RUNS_NT * odd * 4 + RUNS_T * odd + entries
+                 + RUNS_NT // 32 * nb) + 2 * entries)
+
+
+@functools.lru_cache(maxsize=None)
+def runs_width(m: int) -> int:
+    """csrc/interp.cu `runs_width`: the columns a runs block carries, the
+    most up to RUNS_C_MAX whose block fits in a block's shared memory with
+    1 KB to spare."""
+    C = RUNS_C_MAX
+    while C > 3 and _runs_smem(m, C) + 1024 > _K2_SMEM_BLOCK:
+        C -= 1
+    return C
+
+
+def runs_route(J: int, n: int, t: int, m: int) -> bool:
+    """csrc/interp.cu `runs_route`: t >= 3 columns that fit one runs block,
+    and blocks, one a (component, tile of points), that fill the card."""
+    return 3 <= t <= runs_width(m) and J * -(-n // RUNS_T) >= RUNS_MIN_BLOCKS
+
+
+def transpose_tiles(J: int, n: int, t: int, m: int) -> list:
+    """[(route, first column, width)] of K2's column tiles
+    (csrc/interp.cu `rpagp_interp_transpose`): one-column tiles at t <= 2;
+    one runs tile of all t columns where `runs_route` takes the call; else
+    slots tiles of 32 columns and one of the rest, a rest of one column on
+    the one-column route."""
+    if t <= 2:
+        return [("own", k, 1) for k in range(t)]
+    if runs_route(J, n, t, m):
+        return [("runs", 0, t)]
+    full, rest = divmod(t, K2_TILE)
+    tiles = [("slots", k * K2_TILE, K2_TILE) for k in range(full)]
+    if rest:
+        tiles.append(("own" if rest == 1 else "slots", full * K2_TILE, rest))
+    return tiles
+
+
+@functools.lru_cache(maxsize=None)
+def transpose_route(J: int, n: int, t: int, m: int) -> str:
+    """The K2 routes a call launches, joined by "+"."""
+    used = {r for r, _, _ in transpose_tiles(J, n, t, m)}
+    return "+".join(r for r in ROUTES if r in used)
+
+
 def _k2_warps_per_sm(m: int) -> int:
     """K2's warps an SM holds (csrc/interp.cu `k2_launch`): blocks of
     _K2_WARPS warps (one where two do not fit), each warp with its 32
@@ -58,12 +133,20 @@ def _k2_warps_per_sm(m: int) -> int:
 
 
 def transpose_chunk(J: int, n: int, t: int, m: int) -> int:
-    """Points a K2 warp takes, a multiple of 32. Tiles: one column each at
-    t <= 2, all t at t <= 32, else 32 columns and the rest (csrc/interp.cu
-    `rpagp_interp_transpose`); t = 2 takes t = 1's chunks, so that each of
-    its columns adds in a one-column call's order."""
+    """Points a K2 warp or block takes. Runs route: a multiple of RUNS_T,
+    so that the chunks' blocks fill the card _RUNS_WAVES times; slots and
+    own: a multiple of 32 (tiles: `transpose_tiles`); t = 2 takes t = 1's
+    chunks, so that each of its columns adds in a one-column call's
+    order. The partial sums stay within _K2_SCRATCH_FLOATS."""
     if t == 2:
         return transpose_chunk(J, n, 1, m)
+    if runs_route(J, n, t, m):
+        per_sm = min(_RUNS_BLOCKS_MAX,
+                     _K2_SMEM_SM // (_runs_smem(m, t) + 1024))
+        ntile = -(-n // RUNS_T)
+        nchunk = min(ntile, max(1, _RUNS_WAVES * _K2_SMS * per_sm // J),
+                     max(1, _K2_SCRATCH_FLOATS // (J * t * m)))
+        return RUNS_T * -(-ntile // nchunk)
     blocks_per_chunk = J * -(-t // K2_TILE)
     slots = K2_TILE // min(t, K2_TILE)  # points a round, P
     resident = _K2_SMS * _k2_warps_per_sm(m)
@@ -136,6 +219,8 @@ def interp_transpose_cuda(tfrac, V, m: int):
         n, t, m, chunk, _build.stream_ptr(V.device))
     _build.check(err, "interp_transpose kernel")
     launches["interp_transpose"] += 1
+    for route in transpose_route(J, n, t, m).split("+"):
+        launches[f"interp_transpose.{route}"] += 1
     return U
 
 
@@ -160,9 +245,12 @@ def interp_apply_sum_cuda(tfrac, G):
 
 def interp_transpose(tfrac, V, m: int):
     """U[j] = W_j^T V: tfrac (J, n), V (n, t) -> (J, t, m). Its span
-    records (J, n, t, m)."""
+    records (J, n, t, m, route): `transpose_route`'s on the card, "plain"
+    on the CPU."""
+    route = (transpose_route(*tfrac.shape, V.shape[1], m)
+             if tfrac.device.type == "cuda" else "plain")
     with span("rpagp.op.interp_transpose",
-              (*tfrac.shape, V.shape[1], m)):
+              (*tfrac.shape, V.shape[1], m, route)):
         if tfrac.device.type == "cpu":
             return interp_transpose_plain(tfrac, V, m)
         if tfrac.device.type == "cuda":

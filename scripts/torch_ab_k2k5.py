@@ -8,28 +8,27 @@ Builds the other checkout's kernel library with its own build module (in a
 subprocess, into its own `rpagp_torch/_build/`), loads it beside this
 tree's, and at the paths' shapes times other, this, this, other by CUDA
 events: K5 at the BBMM training shape (n = m = 14,939, J = 10, t = 11,
-rbf), and K2 at the flagship's (J = 20, n = 1,844,352, m = 256, uniform
-points) at t = 1, 2 (grid prepare), 9 (every SKI + BBMM CG iteration),
-512 and 513 (the posteriors' cross MVMs), and at sml's (J = 20,
+rbf), and K2 at the flagship's (J = 20, n = 1,844,352, m = 256) at t = 1,
+2 (grid prepare), 9 (every SKI + BBMM CG iteration; uniform points and
+Gaussian ones, the flagship's projections of Gaussian data over their
+range), 512 and 513 (the posteriors' cross MVMs), and at sml's (J = 20,
 n = 3,723, m = 512) at t = 11. The other library is called through the C
-interface it has: K5's, with its plan and scratch, as this tree's (the
-same since K5's redesign); K2's before this tree changed it took V
-transposed, (t, n),
-and t <= 8, so it runs as its wrapper ran it, V copied to (t, n) and
-launches of 8 columns, each with its 8192-point chunks, concatenated, all
-inside the timed call. The two results are compared as well. --smem
-(alone, or before the A/B) builds and runs a
-micro-benchmark of K2's shared-memory access pattern instead: each lane
-its own bank, rounds of 4 read-modify-writes (or 4 stores, or 4 loads) at
-random rows, 6 one-warp blocks an SM (and blocks of 2 and 4 warps), and
-prints the SM clocks a round costs. Prints the card's name and power
-limit first.
+interface both trees have (tfrac, V (n, t), its scratch and its own
+wrapper's chunk, from its `cuda_interp.transpose_chunk`), this tree's
+through its wrapper (the routes it took are printed); the two results are
+compared, bit for bit at t <= 2. --smem (alone, or before the A/B) builds
+and runs a micro-benchmark of the one-column route's shared-memory access
+pattern instead: each lane its own bank, rounds of 4 read-modify-writes (or
+4 stores, or 4 loads) at random rows, 6 one-warp blocks an SM (and blocks
+of 2 and 4 warps), and prints the SM clocks a round costs. Prints the
+card's name and power limit first.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import json
 import os
 import subprocess
 import sys
@@ -40,17 +39,29 @@ sys.path.insert(0, ROOT)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
+# K2's shapes: (J, n, m, t, points)
+_K2_SHAPES = [(20, 1_844_352, 256, 1, "uniform"), (20, 1_844_352, 256, 2, "uniform"),
+              (20, 1_844_352, 256, 9, "uniform"), (20, 1_844_352, 256, 9, "gaussian"),
+              (20, 1_844_352, 256, 512, "uniform"), (20, 1_844_352, 256, 513, "uniform"),
+              (20, 3723, 512, 11, "uniform")]
+
+
 def _other_lib(path):
-    so = subprocess.run(
-        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
-         "from rpagp_torch.ops import _build; print(_build.build())", path],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[-1]
-    lib = ctypes.CDLL(so)
+    """The other checkout's library and its wrapper's K2 chunk at each of
+    _K2_SHAPES."""
+    shapes = [(J, n, t, m) for J, n, m, t, _ in _K2_SHAPES]
+    out = subprocess.run(
+        [sys.executable, "-c", "import sys, json; sys.path.insert(0, sys.argv[1]); "
+         "from rpagp_torch.ops import _build, cuda_interp; print(_build.build()); "
+         "print(json.dumps([cuda_interp.transpose_chunk(*s) for s in "
+         "json.loads(sys.argv[2])]))", path, json.dumps(shapes)],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()
+    lib = ctypes.CDLL(out[-2])
     lib.rpagp_gram_mvm_bwd.argtypes = [_P] * 8 + [_I] * 7 + [_P]
     lib.rpagp_interp_transpose.argtypes = [_P] * 4 + [_I] * 5 + [_P]
     for fn in (lib.rpagp_gram_mvm_bwd, lib.rpagp_interp_transpose):
         fn.restype = ctypes.c_int
-    return lib
+    return lib, json.loads(out[-1])
 
 
 def _ms(fn, iters=20):
@@ -175,7 +186,7 @@ def main():
         _smem_bench()
     if not args.other:
         return 0
-    other = _other_lib(os.path.abspath(args.other))
+    other, chunks_o = _other_lib(os.path.abspath(args.other))
     _build.lib()
     dev = torch.device("cuda")
     stream = _build.stream_ptr(dev)
@@ -213,43 +224,45 @@ def main():
           + f"; this vs other rel dz {_rel(dz, dz_o):.2e} dw "
           f"{_rel(dw, dw_o):.2e}", flush=True)
 
-    # K2 at the flagship's and sml's shapes, uniform points
-    shapes = [(20, 1_844_352, 256, t) for t in (1, 2, 9, 512, 513)]
-    shapes.append((20, 3723, 512, 11))
-    for J, n, m, t in shapes:
-        tf = (1.0 + (m - 4.0) * torch.rand(J, n, generator=gen)).to(dev)
+    # K2 at the flagship's and sml's shapes
+    for (J, n, m, t, kind), chunk_o in zip(_K2_SHAPES, chunks_o):
+        if kind == "uniform":
+            tf = 1.0 + (m - 4.0) * torch.rand(J, n, generator=gen)
+        else:  # Gaussian projections over their range and 2 cells each side
+            z = torch.randn(J, n, generator=gen)
+            lo, hi = z.min(1, keepdim=True).values, z.max(1, keepdim=True).values
+            tf = 2.0 + (z - lo) / (hi - lo) * (m - 5.0)
+        tf = tf.to(dev)
         Vt = torch.randn(n, t, generator=gen).to(dev)
-        chunk_o = 8192  # the other wrapper's points a warp
-        part_o = torch.empty(-(-n // chunk_o) * J * min(t, 8) * m, device=dev)
+        part_o = torch.empty(-(-n // chunk_o) * J * t * m, device=dev)
+        U_o = torch.empty(J, t, m, device=dev)
 
         def k2_other():
-            VT = Vt.t().contiguous()
-            outs = []
-            for s in range(0, t, 8):
-                tc = min(8, t - s)
-                U = torch.empty(J, tc, m, device=dev)
-                err = other.rpagp_interp_transpose(
-                    tf.data_ptr(), VT[s:s + tc].data_ptr(), part_o.data_ptr(),
-                    U.data_ptr(), J, n, tc, m, chunk_o, stream)
-                assert err == 0, err
-                outs.append(U)
-            return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+            err = other.rpagp_interp_transpose(
+                tf.data_ptr(), Vt.data_ptr(), part_o.data_ptr(), U_o.data_ptr(),
+                J, n, t, m, chunk_o, stream)
+            assert err == 0, err
+            return U_o
 
         def k2_this():
             return cuda_interp.interp_transpose_cuda(tf, Vt, m)
 
-        U_o = k2_other()
+        k2_other()
+        before = dict(cuda_interp.launches)
         U = k2_this()
         torch.cuda.synchronize()
+        routes = [k.split(".")[1] for k in before
+                  if "." in k and cuda_interp.launches[k] > before[k]]
         iters = 3 if t >= 512 else 20
         turns = [(name, _ms(fn, iters=iters))
                  for name, fn in (("other", k2_other), ("this", k2_this),
                                   ("this", k2_this), ("other", k2_other))]
-        print(f"K2 (J = {J}, n = {n}, m = {m}, t = {t}, uniform) in turns: "
+        same = (f"; bit for bit {torch.equal(U, U_o)}" if t <= 2 else "")
+        print(f"K2 (J = {J}, n = {n}, m = {m}, t = {t}, {kind}) in turns: "
               + ", ".join(f"{a} {b:.4f} ms" for a, b in turns)
-              + f"; this vs other rel {_rel(U, U_o):.2e}", flush=True)
-        del U_o, part_o
-        del tf, Vt, U
+              + f"; this vs other rel {_rel(U, U_o):.2e}{same}; routes "
+              f"{'+'.join(routes)}", flush=True)
+        del U_o, part_o, tf, Vt, U
     return 0
 
 

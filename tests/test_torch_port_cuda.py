@@ -467,6 +467,10 @@ def _interp_case(J, n, m, t, kind, seed, dev):
     if kind == "crowded":  # every point in three cells near the middle
         tf = rng.choice([m / 2 - 0.7, m / 2 + 0.2, m / 2 + 1.45], (J, n))
         tf = tf + 0.01 * rng.random((J, n))
+    elif kind == "gaussian":  # the flagship's: Gaussian projections over
+        z = rng.standard_normal((J, n))  # their range, 2 cells each side
+        lo, hi = z.min(1, keepdims=True), z.max(1, keepdims=True)
+        tf = 2.0 + (z - lo) / (hi - lo) * (m - 5.0)
     else:
         tf = rng.uniform(-2.0, m + 1.0, (J, n))
     tf = tf.astype(np.float32)
@@ -533,6 +537,55 @@ def test_interp_transpose_small_n_spreads(cuda_device, t):
     rhs = float(torch.sum(V.double() * O.double()))
     assert abs(lhs - rhs) <= 1e-5 * float(torch.linalg.norm(U.double())
                                           * torch.linalg.norm(G.double()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["uniform", "gaussian"])
+@pytest.mark.parametrize("t", [3, 9, 11, 33, 512])
+def test_interp_transpose_routes(cuda_device, kind, t):
+    """K2 on 20 components of 20,000 points (m = 256), where the runs
+    route's blocks fill the card: uniform and flagship-like Gaussian
+    tfrac, the grid's edges and padding; against the plain version in
+    float64 (rel <= 1e-5), padding exactly zero, two launches equal bit for
+    bit, and the route counter: runs at t = 3, 9, 11, slots (and own for
+    the rest of one column) at t = 33 and 512."""
+    J, n, m = 20, 20000, 256
+    tf, V, _ = _interp_case(J, n, m, t, kind, seed=t, dev=cuda_device)
+    before = dict(cuda_interp.launches)
+    U = cuda_interp.interp_transpose_cuda(tf, V, m)
+    moved = {k for k in before if cuda_interp.launches[k] != before[k]}
+    want = ({"runs"} if t <= 16 else {"slots", "own"} if t == 33
+            else {"slots"})
+    assert moved == {"interp_transpose"} | {f"interp_transpose.{r}"
+                                            for r in want}
+    Up = cuda_interp.interp_transpose_plain(tf.double(), V.double(), m)
+    torch.cuda.synchronize()
+    assert _rel(U, Up) <= 1e-5
+    assert torch.equal(cuda_interp.interp_transpose_cuda(tf, V, m), U)
+    V2 = V.clone()
+    V2[-500:] = 1e6
+    assert torch.equal(cuda_interp.interp_transpose_cuda(tf, V2, m), U)
+
+
+@pytest.mark.cuda
+def test_interp_transpose_route_counts(cuda_device):
+    """At the flagship's shape the route counter shows own at t = 1 and 2
+    and runs at t = 9, once a call; a t = 2 call equals two t = 1 calls
+    bit for bit."""
+    J, n, m = 20, 1_844_352, 256
+    tf, V, _ = _interp_case(J, n, m, 9, "gaussian", seed=5, dev=cuda_device)
+    for t, route in ((1, "own"), (2, "own"), (9, "runs")):
+        before = dict(cuda_interp.launches)
+        U = cuda_interp.interp_transpose_cuda(tf, V[:, :t].contiguous(), m)
+        assert cuda_interp.launches[f"interp_transpose.{route}"] \
+            - before[f"interp_transpose.{route}"] == 1
+        assert sum(cuda_interp.launches[k] - before[k] for k in before
+                   if k.startswith("interp_transpose.")) == 1
+        if t == 2:
+            for k in range(2):
+                one = cuda_interp.interp_transpose_cuda(
+                    tf, V[:, k:k + 1].contiguous(), m)
+                assert torch.equal(U[:, k:k + 1], one)
 
 
 @pytest.mark.cuda

@@ -1,4 +1,5 @@
-"""K2's scatter (rpagp_torch/csrc/interp.cu), modelled on the CPU.
+"""K2's scatter (rpagp_torch/csrc/interp.cu), its own and slots routes,
+modelled on the CPU (its runs route: tests/test_torch_port_interp_runs.py).
 
 The kernel cannot run here, so this file holds a torch model of what it
 computes and in which order, `_k2_model(tfrac, V, m, chunk)`: one warp a

@@ -2,9 +2,10 @@
 9-step SKI + BBMM training call under torch.profiler emits every span of
 the training path, nested as the layers nest, with one `rpagp.sync` for
 each device->host read; the K2 / K3 dispatchers record every call's
-(J, n, t, m); with no profiler nothing is recorded and span() is one
-shared no-op; the profiler changes no loss and no parameter. Also
-gpbench/spans.py on a hand-built trace, and the K3 count."""
+(J, n, t, m), K2's with its route after it; with no profiler nothing is
+recorded and span() is one shared no-op; the profiler changes no loss and
+no parameter. Also gpbench/spans.py on a hand-built trace, and the K3
+count."""
 
 import json
 import os
@@ -148,7 +149,7 @@ def test_records_hold_every_k2_and_k3_call(profiled, monkeypatch):
 
     def tr(tfrac, V, m):
         seen["rpagp.op.interp_transpose"].append((*tfrac.shape, V.shape[1],
-                                                  m))
+                                                  m, "plain"))
         return t_plain(tfrac, V, m)
 
     def ap(tfrac, G):
@@ -160,8 +161,10 @@ def test_records_hold_every_k2_and_k3_call(profiled, monkeypatch):
     _train()
     for name, calls in seen.items():
         assert calls and [r[1:] for r in recs if r[0] == name] == calls
-    # only the K2 / K3 calls are recorded, each with its (J, n, t, m)
-    assert all(r[0] in seen and len(r) == 5 for r in recs)
+    # only the K2 / K3 calls are recorded, each with its (J, n, t, m) and
+    # K2's with its route, "plain" on the CPU
+    assert all(r[0] in seen and len(r) == (
+        6 if r[0] == "rpagp.op.interp_transpose" else 5) for r in recs)
 
 
 def test_no_profiler_records_nothing(monkeypatch):
