@@ -8,7 +8,28 @@ traffic mix (gpbench/traffic/<mix>.json), the limits of its check
 (gpbench/limits/<workload>.json; `load_cell`) and one reader per metric
 (gpbench/metrics/<metric>.py, `read(run) -> float | None`). Counts of
 operations and bytes sit in gpbench/counts/<name>.py; `Run.counts`
-loads one by name.
+loads one by name. The mix names its unit (gpbench/units/<unit>.py) and
+the configuration its check (gpbench/checks/<reference>.py), which
+gpbench/drive.py finds by name; a missing file is an error.
+
+A check module has three functions, each handed the unit:
+
+  recorder(unit)  a context manager entered around set-up's recorded
+                  call, which goes through the window's own call and
+                  feed; what it yields the unit keeps as `recorded`. It
+                  may wrap program functions to keep what they compute,
+                  and changes no work
+  judged(unit)    what the check judges of the program's state (a dict,
+                  kept as `judged`), taken at release() before that
+                  state is dropped
+  compare(unit, control=None)
+                  after the window and release(): the compared numbers,
+                  {name: float}, a relative gap or a count each, 0 for
+                  an exact match, worked out from the program's outputs
+                  (the unit's `record` of its first steps, `recorded`,
+                  `judged`) and from a plain reference that imports
+                  nothing of the program; with `control` a precision,
+                  the reference computed in it in the program's place
 
 The last line on standard output is the result, one JSON object; the
 numbers compared, each beside its limit, close standard error and the
@@ -157,7 +178,7 @@ def _window(traffic, run, seconds, device, torch):
 
 
 def _compare(traffic, limits, failed: int):
-    got = traffic.check()
+    got = traffic.checks.compare(traffic)
     got["failed_units"] = failed
     missing = sorted(set(limits) - set(got))
     if missing:

@@ -46,14 +46,15 @@ def test_half_of_the_rows_left_out(cell, fault):
 @pytest.mark.parametrize("cell", CELLS)
 def test_a_non_finite_loss_in_the_window(cell, monkeypatch):
     calls = []
-    unit0 = drive.TrainCalls.unit
+    train_call = drive.find("units", "train_call")
+    unit0 = train_call.Unit.unit
 
     def unit(self, i):
         calls.append(i)
         out = unit0(self, i)
         return {**out, "ok": False} if len(calls) == 1 else out
 
-    monkeypatch.setattr(drive.TrainCalls, "unit", unit)
+    monkeypatch.setattr(train_call.Unit, "unit", unit)
     rc, res, _ = run(cell)
     assert rc == 0 and res["correct"] is False and res["failed"] >= 1
     assert res["compared"]["failed_units"]["value"] >= 1
@@ -69,5 +70,5 @@ def test_the_control_fails_on_the_card(cell):
     tr.setup()
     tr.release()
     gc.collect()
-    got = tr.check(control="tf32")
+    got = tr.checks.compare(tr, control="tf32")
     assert any(got[k] > v for k, v in c.limits.items() if k in got), got

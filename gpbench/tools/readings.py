@@ -122,10 +122,12 @@ def main(argv=None):
     for seed in args.seeds:
         t0 = time.perf_counter()
         tr = _program(c.cfg, c.mix, seed, device)
-        line = {"seed": seed, "program": tr.check(), "leaves": tr.leaves()}
+        line = {"seed": seed, "program": tr.checks.compare(tr)}
+        if hasattr(tr.checks, "leaves"):
+            line["leaves"] = tr.checks.leaves(tr)
         worst("program", line["program"], max)
         if seed in args.control_seeds:
-            line["control"] = tr.check(control="tf32")
+            line["control"] = tr.checks.compare(tr, control="tf32")
             worst("control", line["control"], min)
         del tr
         for fault in args.faults if seed in args.fault_seeds else ():
@@ -135,7 +137,7 @@ def main(argv=None):
                 # a fault that crashes the program has failed the check
                 line[fault] = {"crashed": repr(exc)[:300]}
                 continue
-            line[fault] = trf.check()
+            line[fault] = trf.checks.compare(trf)
             worst(fault, line[fault], min)
             del trf
         gc.collect()
