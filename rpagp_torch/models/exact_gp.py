@@ -18,6 +18,7 @@ import torch
 
 from ..ops import exact, kernels
 from ..ops.kernels import KernelSpec
+from ..utils.profiling import span
 from ..utils.transforms import softplus
 
 NOISE_FLOOR = 1e-4
@@ -131,7 +132,9 @@ def mean_fn(spec: ModelSpec, params, x):
 
 def exact_mll(spec: ModelSpec, params, buffers, x, y):
     """Exact Cholesky marginal log-likelihood (the total over n points)."""
-    K = kernels.gram(spec.kernel, params["kernel"], buffers["kernel"], x, x)
+    with span("rpagp.exact.gram"):
+        K = kernels.gram(spec.kernel, params["kernel"], buffers["kernel"], x,
+                         x)
     yc = y - mean_fn(spec, params, x)
     return exact.cholesky_mll(K, yc, noise_value(params), spec.jitter)
 

@@ -6,7 +6,8 @@ kernels (`_leaf_kernel`, `_panel_kernel` behind `chol_linv`, and
 points launch one CUDA kernel, csrc/chol_linv_coop.cu: one cooperative
 launch of G blocks over the card's SMs, with grid barriers between the
 phases of each panel, for B >= 1 matrices; each launch has its own
-counter:
+counter, and the `rpagp.op.chol_linv` span records each call's (B, b)
+while a profiler records (on the CPU too):
 
   chol_linv(A)          (b, b)    -> L, Linv (b, b), ok ()   the 512 leaf
   chol_linv_batched(T)  (J, b, b) -> L, Linv (J, b, b), ok (J,)  the ladder
@@ -42,6 +43,7 @@ import ctypes
 
 import torch
 
+from ..utils.profiling import span
 from . import _build
 
 # launches of the cooperative kernel, per entry point
@@ -132,10 +134,13 @@ def chol_linv_cuda(A, name: str):
 
 
 def _dispatch(A, name):
-    if A.device.type == "cpu":
-        return chol_linv_plain(A)
-    if A.device.type == "cuda":
-        return chol_linv_cuda(A, name)
+    """K1 on the card, its plain version on the CPU; the span records the
+    call's (B, b)."""
+    with span("rpagp.op.chol_linv", tuple(A.shape[:2])):
+        if A.device.type == "cpu":
+            return chol_linv_plain(A)
+        if A.device.type == "cuda":
+            return chol_linv_cuda(A, name)
     raise TypeError(f"chol_linv: no kernel for device {A.device}")
 
 

@@ -4,7 +4,10 @@ posterior (port of rpagp/ops/exact.py).
 The factor is block_chol.blocked_cholesky: above its 512 block, GEMMs
 around K1 on each diagonal leaf (ops/cuda_chol.py); at or below it, the
 builtin Cholesky, as in the JAX package. Gradients are plain autograd
-through the factor, with K1's closed-form VJP on the leaves.
+through the factor, with K1's closed-form VJP on the leaves. The MLL's
+factor and its solve and logdet sit in the `rpagp.exact.factor` and
+`rpagp.exact.solve` spans (exact_gp.exact_mll's Gram in
+`rpagp.exact.gram`).
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ import math
 
 import torch
 
+from ..utils.profiling import span
 from .block_chol import blocked_cholesky, blocked_solve_triangular
 
 LOG_2PI = 1.8378770664093453
@@ -31,10 +35,12 @@ def cholesky_mll(K, y_centered, noise, jitter: float = 1e-6):
     """Exact marginal log-likelihood (the total, not per point):
     -1/2 [y^T (K + s^2 I)^{-1} y + logdet(K + s^2 I) + n log 2 pi]."""
     n = y_centered.shape[0]
-    L = blocked_cholesky(add_jitter(K, noise, jitter))
-    alpha = torch.cholesky_solve(y_centered[:, None], L)[:, 0]
-    inv_quad = y_centered @ alpha
-    logdet = 2.0 * torch.sum(torch.log(torch.diagonal(L)))
+    with span("rpagp.exact.factor"):
+        L = blocked_cholesky(add_jitter(K, noise, jitter))
+    with span("rpagp.exact.solve"):
+        alpha = torch.cholesky_solve(y_centered[:, None], L)[:, 0]
+        inv_quad = y_centered @ alpha
+        logdet = 2.0 * torch.sum(torch.log(torch.diagonal(L)))
     return -0.5 * (inv_quad + logdet + n * LOG_2PI)
 
 

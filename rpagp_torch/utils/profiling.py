@@ -12,7 +12,8 @@
     so host spans and device events share one clock and each kernel is
     tied by its `correlation` id to the launch inside the span. Entering
     it appends `(name, *record)` to the op records when the caller
-    passes a record (the K2 / K3 dispatchers pass their (J, n, t, m)),
+    passes a record (the K2 / K3 dispatchers pass their (J, n, t, m),
+    K1's its (B, b)),
     and counts the entry when the name is one of `COUNTED` (the
     training steps and the host reads). Otherwise it returns one shared
     no-op, after a single read of torch's profiler flag: there is no
@@ -64,6 +65,10 @@ SPANS = (
     ("rpagp.op.interp_apply_sum", "kernels"),
     ("rpagp.op.toeplitz", "kernels"),
     ("rpagp.love.lanczos", "posterior"),
+    ("rpagp.exact.gram", "dense step"),
+    ("rpagp.exact.factor", "dense step"),
+    ("rpagp.exact.solve", "dense step"),
+    ("rpagp.op.chol_linv", "kernels"),
 )
 
 # the spans whose entries are counted while a profiler records

@@ -4,8 +4,9 @@ the training path, nested as the layers nest, with one `rpagp.sync` for
 each device->host read; the K2 / K3 dispatchers record every call's
 (J, n, t, m), K2's with its route after it; with no profiler nothing is
 recorded and span() is one shared no-op; the profiler changes no loss and
-no parameter. Also gpbench/spans.py on a hand-built trace, and the K3
-count."""
+no parameter. A dense exact training call opens the Gram, factor and
+solve spans inside its steps, and K1's span records each launch's (B, b).
+Also gpbench/spans.py on a hand-built trace, and the K3 count."""
 
 import json
 import os
@@ -20,7 +21,7 @@ from rpagp_torch import train
 from rpagp_torch.mll import mll as mll_fn
 from rpagp_torch.models import exact_gp
 from rpagp_torch.models.exact_gp import ModelSpec
-from rpagp_torch.ops import cuda_interp
+from rpagp_torch.ops import cuda_chol, cuda_interp
 from rpagp_torch.ops.kernels import KernelSpec
 from rpagp_torch.utils import profiling
 from rpagp_torch.utils.config import TrainConfig
@@ -230,6 +231,86 @@ def test_runner_profile_and_love_spans(tmp_path):
                               torch.tensor(0.1), 3)
     assert profiling.take_records() == []  # LOVE's span records nothing
     assert "rpagp.love.lanczos" in {e.name for e in prof.events()}
+
+
+# ------------------------------------------- the dense exact branch ----
+
+# n above the 512 block: the factor pads to 1024 and runs K1 on two leaves
+EXACT_N, EXACT_STEPS = 600, 3
+EXACT_SPANS = ("rpagp.exact.gram", "rpagp.exact.factor", "rpagp.exact.solve")
+
+
+def _train_exact(device="cpu"):
+    """A 3-step train_to_convergence call on the dense exact branch."""
+    kspec = KernelSpec.generalized([1] * J, ["rbf"] * J,
+                                   proj_dist="gaussian")
+    spec = ModelSpec(kernel=kspec)
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(EXACT_N, D, generator=g)
+    y = torch.sin(x.sum(1)) + 0.1 * torch.randn(EXACT_N, generator=g)
+    params, buffers = exact_gp.init_model(spec, D, generator=g,
+                                          device=device)
+    return train.train_to_convergence(
+        lambda p, b, xx, yy: -mll_fn(spec, p, b, xx, yy) / EXACT_N, params,
+        TrainConfig(lr=0.05, max_iters=EXACT_STEPS, patience=EXACT_STEPS),
+        loss_args=(buffers, x.to(device), y.to(device)), sync_every=8)
+
+
+def test_the_exact_branch_emits_its_spans_nested(tmp_path):
+    profiling.take_records()
+    profiling.take_counts()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _train_exact()
+    profiling.take_records()
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        ev = [e for e in json.load(f)["traceEvents"]
+              if e.get("cat") == "user_annotation"
+              and e.get("name", "").startswith("rpagp.")]
+    count = lambda n: sum(e["name"] == n for e in ev)
+    for n in EXACT_SPANS:
+        assert n in {name for name, _ in profiling.SPANS}
+        assert count(n) == EXACT_STEPS, n
+    assert count("rpagp.op.chol_linv") == 2 * EXACT_STEPS
+    for e in ev:
+        if e["name"] in EXACT_SPANS:
+            assert _inside(e, "rpagp.train.loss", ev), e["name"]
+            assert _inside(e, "rpagp.train.step", ev), e["name"]
+        if e["name"] == "rpagp.op.chol_linv":
+            assert _inside(e, "rpagp.exact.factor", ev)
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param(
+    "cuda", marks=pytest.mark.cuda)])
+def test_k1_records_are_its_launches(device):
+    """The K1 span's records are the calls the factor made: on the card
+    the cooperative kernel's launches, on the CPU the leaves, two of 512
+    a step."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the records against K1's launches")
+    profiling.take_records()
+    profiling.take_counts()
+    before = cuda_chol.launches["chol_linv"]
+    with profile(activities=[ProfilerActivity.CPU]):
+        _train_exact(device)
+    recs = profiling.take_records()
+    assert recs == [("rpagp.op.chol_linv", 1, 512)] * (2 * EXACT_STEPS)
+    if device == "cuda":
+        assert cuda_chol.launches["chol_linv"] - before == len(recs)
+
+
+def test_no_profiler_records_nothing_on_the_exact_branch(monkeypatch):
+    profiling.take_records()
+    profiling.take_counts()
+
+    def refuse(name):
+        raise AssertionError(f"a range opened with no profiler: {name}")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    _train_exact()
+    assert profiling.take_records() == []
+    assert set(profiling.take_counts().values()) == {0}
 
 
 # ------------------------------------------------ gpbench/spans.py ----
