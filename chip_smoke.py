@@ -17,9 +17,10 @@ ported path through rpagp_torch.runner.run_split at full size:
 - the BBMM dense path on elevators (K4, K5), phases 5-7; phase 5 also
   prints the instruction mix of K4's and K5's inner loops from the built
   library's SASS;
-- the dense Cholesky path (K1's 512 leaf in the blocked factor of
-  K + s^2 I) on rp_poly_j20 / sml, phase 8, then every other dense spec
-  briefly;
+- the dense Cholesky path (K6 / K7, the dense Gram and its backward, held
+  against their float64 twins at its K(x, x) and its predictor's cross
+  Gram in phase 5; K1's 512 leaf in the blocked factor of K + s^2 I) on
+  rp_poly_j20 / sml, phase 8, then every other dense spec briefly;
 - SKI + BBMM (K2 and K3 in every CG iteration and backward), phase 9:
   rp_poly_j20_ski on sml (m = 512, t = 11, K2 held with padding and points
   beyond the grid; its CUDA MLL against the CPU
@@ -1216,7 +1217,8 @@ SASS_KEYS = {"K4": "gram_mvm_narrow_kernelILi0ELi12E",
 
 def phase5_gram_kernels(results):
     """K4 / K5 against their plain versions at the BBMM path's shapes;
-    first the instruction mix of K4's inner loop at the training shape."""
+    first the instruction mix of K4's inner loop at the training shape.
+    Then K6 / K7 against their float64 twins at the dense path's shapes."""
     import torch
 
     from rpagp_torch.ops import _build
@@ -1305,6 +1307,67 @@ def phase5_gram_kernels(results):
             line += ("; autograd.Function grads dz1/dz2/dw/dV rel "
                      + "/".join(f"{x:.2e}" for x in errs))
         say(5, line)
+
+    # K6 / K7 at the exact cell's K(x, x) and its predictor's cross Gram
+    # (J 20 on sml: n 3,723, n_test 414), RBF, against the float64 twins
+    from gpbench.counts import gram as gram_counts
+
+    J = 20
+    for label, rows, cols in (("K(x, x)", N_SML_TRAIN, N_SML_TRAIN),
+                              ("cross K(x*, x)", N_SML_TEST, N_SML_TRAIN)):
+        same = rows == cols
+        u1 = (1.5 * torch.randn(J, rows, generator=gen)).to(dev)
+        u2 = u1 if same else (1.5 * torch.randn(J, cols, generator=gen)).to(dev)
+        w = torch.full((J,), math.log(2.0) / J, device=dev)
+        G = torch.randn(rows, cols, generator=gen).to(dev)
+        before = dict(cg.launches)
+        K = cg.dense_gram_cuda(u1, u2, w)
+        du1, du2, dw = cg.dense_gram_bwd_cuda(u1, u2, w, G)
+        torch.cuda.synchronize()
+        check(cg.launches["dense_gram"] - before["dense_gram"] == 1
+              and cg.launches["dense_gram_bwd"] - before["dense_gram_bwd"] == 1,
+              f"K6 / K7 {label}: not one launch each at J = {J}")
+        a1, aw, aG = u1.double(), w.double(), G.double()
+        a2 = a1 if same else u2.double()
+        K64 = cg.dense_gram_plain(a1, a2, aw)
+        p1, p2, pw = cg.dense_gram_bwd_plain(a1, a2, aw, aG)
+        if same:  # du1 is then the whole gradient of the coordinates
+            p1 = p1 + p2
+        errs = {"K": rel(K, K64), "du1": rel(du1, p1), "dw": rel(dw, pw)}
+        if not same:
+            errs["du2"] = rel(du2, p2)
+        check(max(errs.values()) <= 1e-5, f"K6 / K7 {label}: rel {errs}")
+        check(torch.equal(K, cg.dense_gram_cuda(u1, u2, w)),
+              f"K6 {label}: not bit-identical on a repeat")
+        check(not same or torch.equal(K, K.T),
+              f"K6 {label}: K(x, x) not exactly symmetric")
+        for _ in range(2):
+            r1, r2, rw = cg.dense_gram_bwd_cuda(u1, u2, w, G)
+            check(torch.equal(du1, r1) and torch.equal(dw, rw)
+                  and (same or torch.equal(du2, r2)),
+                  f"K7 {label}: not bit-identical on a repeat")
+        ms6 = cuda_ms(lambda: cg.dense_gram_cuda(u1, u2, w))
+        ms7 = cuda_ms(lambda: cg.dense_gram_bwd_cuda(u1, u2, w, G))
+        pms6 = cuda_ms(lambda: cg.dense_gram_plain(u1, u2, w), iters=2)
+        pms7 = cuda_ms(lambda: cg.dense_gram_bwd_plain(u1, u2, w, G), iters=2)
+        # counts/gram.py's bytes and f32 operations, and one exp a value
+        b6, b7 = (bound(*gram_counts.work(J, rows, cols, d),
+                        exps=J * rows * cols) for d in ("fwd", "bwd"))
+        say(5, f"K6 / K7 {label} ({rows}, {cols}, J={J}, rbf): rel "
+               + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+               + f" against the float64 twins, repeat bit for bit; K6 "
+               f"{ms6:.4f} ms vs plain {pms6:.3f} ms, K7 {ms7:.4f} ms vs "
+               f"plain {pms7:.3f} ms; bound {b6[0]:.4f} / {b7[0]:.4f} ms "
+               f"({b6[2]})")
+        if same:
+            results["dense_gram"] = dict(
+                max_abs_err=max_abs(K, K64), ms=ms6, plain_ms=pms6,
+                bound_ms=b6[0], bound_by=b6[1], library_ms=None)
+            results["dense_gram_bwd"] = dict(
+                max_abs_err=max(max_abs(du1, p1), max_abs(dw, pw)), ms=ms7,
+                plain_ms=pms7, bound_ms=b7[0], bound_by=b7[1],
+                library_ms=None)
+        del K, K64, G, aG
 
 
 def phase6_bbmm_mll():
@@ -1437,10 +1500,15 @@ def phase7_bbmm_main_path(results):
            f"({m['iterations']} steps), posterior {timings['posterior_s']:.2f}"
            f" s; rmse {m['rmse']:.4f} nll {m['nll']:.4f} mll {m['mll']:.5f}; "
            f"peak memory {peak / 2**30:.2f} GiB; launches {launches}")
-    for k, v in launches.items():
-        check(v > 0, f"kernel {k} was not launched on the BBMM path")
-        results[k]["launches"] = v
-        results[k].setdefault("launches_by_path", {})["bbmm"] = v
+    # K4 / K5 carry the BBMM MLL; the preconditioner's pivot rows are K6's
+    # one-row Grams, and nothing differentiates a dense Gram there (no K7)
+    for k in ("gram_mvm", "gram_mvm_bwd"):
+        check(launches[k] > 0, f"kernel {k} was not launched on the BBMM path")
+        results[k]["launches"] = launches[k]
+        results[k].setdefault("launches_by_path", {})["bbmm"] = launches[k]
+    check(launches["dense_gram"] > 0, "no K6 pivot row on the BBMM path")
+    for k in ("dense_gram", "dense_gram_bwd"):
+        results[k].setdefault("launches_by_path", {})["bbmm"] = launches[k]
     for k in ("rmse", "nll", "mll"):
         check(math.isfinite(m[k]), f"{k} not finite")
     check(m["rmse"] < 0.9, f"rmse {m['rmse']:.4f} >= 0.9: learned nothing")
@@ -1526,7 +1594,7 @@ def phase8_dense_main_path(results):
     from rpagp_torch import runner
     from rpagp_torch.mll import mll
     from rpagp_torch.models import exact_gp
-    from rpagp_torch.ops import block_chol, cuda_chol, exact, kernels
+    from rpagp_torch.ops import block_chol, cuda_chol, cuda_gram, exact, kernels
     from rpagp_torch.utils.config import load_spec
 
     dev = torch.device("cuda")
@@ -1548,12 +1616,12 @@ def phase8_dense_main_path(results):
     with torch.no_grad():
         loss0 = float(-mll(exp.model, params, buffers, x, y) / n)
 
-    _zero([cuda_chol.launches])
+    _zero([cuda_chol.launches, cuda_gram.launches])
     torch.cuda.reset_peak_memory_stats()
     timings = {}
     m = runner.run_split(exp, split, seed=0, device=dev, timings=timings)
     torch.cuda.synchronize()
-    launches = dict(cuda_chol.launches)
+    launches = {**cuda_chol.launches, **cuda_gram.launches}
     peak = torch.cuda.max_memory_allocated()
     forwards = m["iterations"] + 1  # the training steps and the posterior
     say(8, f"run_split rp_poly_j20 on sml split 0 (n_train {n}, n_test "
@@ -1570,6 +1638,16 @@ def phase8_dense_main_path(results):
     check(launches["chol_linv_batched"] == 0, "ladder batch on the dense path")
     results["chol_linv"].setdefault("launches_by_path", {})["dense"] = \
         launches["chol_linv"]
+    # K6: each step's K(x, x), the posterior's K(x, x) and its cross Gram;
+    # K7: each step's backward
+    steps = m["iterations"]
+    check(launches["dense_gram"] == steps + 2
+          and launches["dense_gram_bwd"] == steps,
+          f"K6 / K7 launches {launches['dense_gram']} / "
+          f"{launches['dense_gram_bwd']} for {steps} steps and a posterior")
+    for k in ("dense_gram", "dense_gram_bwd"):
+        results[k]["launches"] = launches[k]
+        results[k].setdefault("launches_by_path", {})["dense"] = launches[k]
     for k in ("rmse", "nll", "mll"):
         check(math.isfinite(m[k]), f"{k} not finite")
     check(-m["mll"] < loss0, f"the loss did not fall: best {-m['mll']:.5f} "
@@ -1592,10 +1670,13 @@ def phase8_dense_main_path(results):
         return loss
 
     step()  # warm-up
-    _zero([cuda_chol.launches])
+    _zero([cuda_chol.launches, cuda_gram.launches])
     syncs = _count_syncs(step)
     check(cuda_chol.launches["chol_linv"] == 8,
           f"{cuda_chol.launches['chol_linv']} K1 launches in one step, not 8")
+    check(cuda_gram.launches["dense_gram"] == 1
+          and cuda_gram.launches["dense_gram_bwd"] == 1,
+          f"K6 / K7 launches in one step {cuda_gram.launches}, not 1 / 1")
     torch.cuda.reset_peak_memory_stats()
     events = []
     for _ in range(5):
@@ -1616,7 +1697,8 @@ def phase8_dense_main_path(results):
     say(8, f"5 timed steps: median {med:.2f} ms/step (all "
            f"{', '.join(f'{v:.2f}' for v in step_ms)}; forward median "
            f"{fwd:.2f} ms, the rest backward + Adam); peak memory of a step "
-           f"{step_peak / 2**30:.2f} GiB; K1 launches in one step 8; "
+           f"{step_peak / 2**30:.2f} GiB; launches in one step: K1 8, K6 1, "
+           f"K7 1; "
            f"device->host syncs in one step {sum(syncs.values())} {syncs}")
     check(sum(syncs.values()) == 0, f"host reads in the dense step: {syncs}")
     busy, by, largest = _device_ms(step, 3, ("chol_linv_coop_kernel",),
@@ -3397,6 +3479,40 @@ def phase12e_cli(say12, tmp):
         os.remove(out)
 
 
+def kernel_entries(results):
+    """The `kernels` line's entries: each kernel's source, the TPU kernel
+    it replaces, and what the phases recorded of it."""
+    source = {"chol_linv": "rpagp_torch/csrc/chol_linv_coop.cu",
+              "chol_linv_batched": "rpagp_torch/csrc/chol_linv_coop.cu",
+              "interp_transpose": "rpagp_torch/csrc/interp.cu",
+              "interp_apply_sum": "rpagp_torch/csrc/interp.cu",
+              "gram_mvm": "rpagp_torch/csrc/gram_mvm.cu",
+              "gram_mvm_bwd": "rpagp_torch/csrc/gram_mvm.cu",
+              "dense_gram": "rpagp_torch/csrc/gram_mvm.cu",
+              "dense_gram_bwd": "rpagp_torch/csrc/gram_mvm.cu"}
+    replaces = {"chol_linv": "rpagp/ops/pallas_chol.py:190",
+                "chol_linv_batched": "rpagp/ops/pallas_chol.py:381",
+                "interp_transpose": "rpagp/ops/pallas_interp.py:108",
+                "interp_apply_sum": "rpagp/ops/pallas_interp.py:182",
+                "gram_mvm": "rpagp/ops/pallas_gram.py:86",
+                "gram_mvm_bwd": "rpagp/ops/pallas_gram.py:173",
+                # no TPU kernel: the JAX package's dense Gram is plain jnp
+                "dense_gram": None, "dense_gram_bwd": None}
+    keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
+    # launches: on the grid or BBMM path's run_split (K6 / K7: on the dense
+    # path's); launches_by_path: on each path's run_split that launched the
+    # kernel (K1's leaf on the grid, dense and product SKI paths, its ladder
+    # on the grid and product SKI paths, K2 and K3 on the grid and both
+    # SKI + BBMM runs, K6 on the BBMM and dense paths, K7 on the dense; phase
+    # 12's distributed runs: K1-K3 on grid_distributed, K2 and K3 on
+    # ski_bbmm_distributed, K4 and K5 on bbmm_distributed)
+    return [{"name": k, "route": "cuda", "source": source[k],
+             "replaces": replaces[k], **{f: r[f] for f in keys},
+             "launches_by_path": r["launches_by_path"]}
+            for k, r in results.items()]
+
+
 def main():
     import torch
 
@@ -3418,30 +3534,7 @@ def main():
         tp = time.perf_counter()
         fn()
         say(phase, f"phase {phase} took {time.perf_counter() - tp:.1f} s")
-    source = {"chol_linv": "rpagp_torch/csrc/chol_linv_coop.cu",
-              "chol_linv_batched": "rpagp_torch/csrc/chol_linv_coop.cu",
-              "interp_transpose": "rpagp_torch/csrc/interp.cu",
-              "interp_apply_sum": "rpagp_torch/csrc/interp.cu",
-              "gram_mvm": "rpagp_torch/csrc/gram_mvm.cu",
-              "gram_mvm_bwd": "rpagp_torch/csrc/gram_mvm.cu"}
-    replaces = {"chol_linv": "rpagp/ops/pallas_chol.py:190",
-                "chol_linv_batched": "rpagp/ops/pallas_chol.py:381",
-                "interp_transpose": "rpagp/ops/pallas_interp.py:108",
-                "interp_apply_sum": "rpagp/ops/pallas_interp.py:182",
-                "gram_mvm": "rpagp/ops/pallas_gram.py:86",
-                "gram_mvm_bwd": "rpagp/ops/pallas_gram.py:173"}
-    keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")
-    # launches: on the grid or BBMM path's run_split; launches_by_path:
-    # on each path's run_split that launched the kernel (K1's leaf on the
-    # grid, dense and product SKI paths, its ladder on the grid and product
-    # SKI paths, K2 and K3 on the grid and both SKI + BBMM runs; phase
-    # 12's distributed runs: K1-K3 on grid_distributed, K2 and K3 on
-    # ski_bbmm_distributed, K4 and K5 on bbmm_distributed)
-    kernels = [{"name": k, "route": "cuda", "source": source[k],
-                "replaces": replaces[k], **{f: r[f] for f in keys},
-                "launches_by_path": r["launches_by_path"]}
-               for k, r in results.items()]
+    kernels = kernel_entries(results)
     say("done", f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

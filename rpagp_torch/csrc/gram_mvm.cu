@@ -1,5 +1,7 @@
 // K4 / K5: the fused projected additive Gram x V product, forward and
-// backward, without storing the Gram.
+// backward, without storing the Gram. K6 / K7 (after K5): the dense
+// projected Gram and its backward, without storing the (J, n, m)
+// differences.
 //
 // K4 `gram_mvm`:      out = K V,  K[i, l] = sum_j w_j k1d(z1[i, j] - z2[l, j])
 //                     z1 (n, J), z2 (m, J), w (J,), V (m, t) -> out (n, t)
@@ -172,6 +174,19 @@ __device__ __forceinline__ void stage_tile(float* s_z2, float* s_v,
   }
 }
 
+// w_j k1d of one pair at prescaled difference d added to acc: rbf
+// w 2^(-d^2), matern12 w 2^-|d|, matern32 w (1 + s) 2^-|d|, matern52 w (1 +
+// s + s^2 / 3) 2^-|d|, s = |d| ln 2; wl = w_j ln 2, w2 = w_j ln(2)^2 / 3
+template <int BASE>
+__device__ __forceinline__ float fwd_pair(float d, float wj, float wl,
+                                          float w2, float acc) {
+  if (BASE == RBF) return fmaf(wj, ex2(-d * d), acc);
+  const float u = fabsf(d);
+  if (BASE == MATERN12) return fmaf(wj, ex2(-u), acc);
+  if (BASE == MATERN32) return fmaf(fmaf(u, wl, wj), ex2(-u), acc);
+  return fmaf(fmaf(u, fmaf(u, w2, wl), wj), ex2(-u), acc);
+}
+
 // ks[i][q] = sum_j w_j k1d(z1[row ty*FR + i, j] - z2[col tx + 16 q, j]) of
 // one tile, from the prescaled coordinates z1s and z2s (J, FT)
 template <int BASE>
@@ -189,38 +204,12 @@ __device__ __forceinline__ void gram_tile(float ks[FR][FQ], const float* z1s,
     float bq[FQ];
 #pragma unroll
     for (int q = 0; q < FQ; ++q) bq[q] = z2s[j * FT + tx + 16 * q];
-    const float wj = ws[j];
-    if (BASE == RBF || BASE == MATERN12) {
+    const float wj = ws[j], wl = wj * LN2, w2 = wj * (LN2 * LN2 / 3.0f);
 #pragma unroll
-      for (int i = 0; i < FR; ++i)
+    for (int i = 0; i < FR; ++i)
 #pragma unroll
-        for (int q = 0; q < FQ; ++q) {
-          const float d = a[i] - bq[q];
-          const float e = BASE == RBF ? ex2(-d * d) : ex2(-fabsf(d));
-          ks[i][q] = fmaf(wj, e, ks[i][q]);
-        }
-    } else if (BASE == MATERN32) {
-      // w (1 + s) 2^-|d'|, s = |d'| ln 2
-      const float wl = wj * LN2;
-#pragma unroll
-      for (int i = 0; i < FR; ++i)
-#pragma unroll
-        for (int q = 0; q < FQ; ++q) {
-          const float d = fabsf(a[i] - bq[q]);
-          ks[i][q] = fmaf(fmaf(d, wl, wj), ex2(-d), ks[i][q]);
-        }
-    } else {
-      // w (1 + s + s^2 / 3) 2^-|d'|, s = |d'| ln 2
-      const float wl = wj * LN2, w2 = wj * (LN2 * LN2 / 3.0f);
-#pragma unroll
-      for (int i = 0; i < FR; ++i)
-#pragma unroll
-        for (int q = 0; q < FQ; ++q) {
-          const float d = fabsf(a[i] - bq[q]);
-          const float p = fmaf(d, fmaf(d, w2, wl), wj);
-          ks[i][q] = fmaf(p, ex2(-d), ks[i][q]);
-        }
-    }
+      for (int q = 0; q < FQ; ++q)
+        ks[i][q] = fwd_pair<BASE>(a[i] - bq[q], wj, wl, w2, ks[i][q]);
   }
 }
 
@@ -770,6 +759,22 @@ BwdKernel bwd_kernel(int base, int J, int t) {
   return k;
 }
 
+// the coordinates' scale and dz's factor of base 0..3 (rbf, matern12,
+// matern32, matern52)
+float coord_scale_of(int base) {
+  return base == RBF        ? coord_scale<RBF>()
+         : base == MATERN12 ? coord_scale<MATERN12>()
+         : base == MATERN32 ? coord_scale<MATERN32>()
+                            : coord_scale<MATERN52>();
+}
+
+float dz_scale_of(int base) {
+  return base == RBF        ? dz_scale<RBF>()
+         : base == MATERN12 ? dz_scale<MATERN12>()
+         : base == MATERN32 ? dz_scale<MATERN32>()
+                            : dz_scale<MATERN52>();
+}
+
 // the blocks of kernel fn the current device holds at once
 int resident_blocks(const void* fn, size_t bytes, int* G) {
   int dev = 0, sms = 0, per_sm = 0;
@@ -817,10 +822,7 @@ extern "C" int rpagp_gram_mvm(const float* z1, const float* z2, const float* w,
   const FwdKernel k = fwd_kernel(base, J, t);
   if (k.fn == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const float c = base == RBF        ? coord_scale<RBF>()
-                  : base == MATERN12 ? coord_scale<MATERN12>()
-                  : base == MATERN32 ? coord_scale<MATERN32>()
-                                     : coord_scale<MATERN52>();
+  const float c = coord_scale_of(base);
   const int np = (n + FT - 1) / FT * FT, mp = (m + FT - 1) / FT * FT;
   const float* z1t = zt;
   const float* z2t = zt + (size_t)J * np;
@@ -881,14 +883,8 @@ extern "C" int rpagp_gram_mvm_bwd(const float* z1, const float* z2,
   const BwdKernel k = bwd_kernel(base, J, t);
   if (k.fn == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const float c = base == RBF        ? coord_scale<RBF>()
-                  : base == MATERN12 ? coord_scale<MATERN12>()
-                  : base == MATERN32 ? coord_scale<MATERN32>()
-                                     : coord_scale<MATERN52>();
-  const float scale = base == RBF        ? dz_scale<RBF>()
-                      : base == MATERN12 ? dz_scale<MATERN12>()
-                      : base == MATERN32 ? dz_scale<MATERN32>()
-                                         : dz_scale<MATERN52>();
+  const float c = coord_scale_of(base);
+  const float scale = dz_scale_of(base);
   const int RT = (n + BR - 1) / BR, np = RT * BR;
   const int mp = (m + BL - 1) / BL * BL;
   const int tp = (t + k.tc - 1) / k.tc * k.tc;
@@ -918,5 +914,370 @@ extern "C" int rpagp_gram_mvm_bwd(const float* z1, const float* z2,
   bwd_dz_kernel<<<blocks < 4096 ? (int)blocks : 4096, 256, 0, s>>>(
       dzp, w, dz, count, J, S, scale);
   bwd_dw_kernel<<<J, NT, 0, s>>>(dwp, dw, items, J);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------ K6 / K7 ----
+//
+// K6 `dense_gram`:     K[i, k] = sum_j w_j k1d(u1[j, i] - u2[j, k])
+//                      u1 (J, n), u2 (J, m), w (J,) -> K (n, m)
+// K7 `dense_gram_bwd`: for the cotangent G (n, m) of K
+//                      du1[j, i] =  w_j sum_k G[i, k] k1d'(u1[j, i] - u2[j, k])
+//                      du2[j, k] = -w_j sum_i G[i, k] k1d'(u1[j, i] - u2[j, k])
+//                      dw[j]     =  sum_{i, k} G[i, k] k1d(u1[j, i] - u2[j, k])
+//                      (where u2 is u1, du = du1 + du2)
+//
+// They replace no TPU kernel: the JAX package's dense Gram
+// (rpagp/ops/kernels.py `_projection_gram`) is plain jnp, which builds the
+// (J, n, m) differences and values and keeps them for its backward. They
+// were added for the exact GP's training step, whose Gram and its backward
+// took ~24 ms of a ~36 ms step at n = 3,723, J = 20 as plain PyTorch passes
+// over (20, n, n) tensors, 2.2 GB of them kept for the backward. Here no (J,
+// n, m) tensor exists: each pass recomputes the values from the
+// coordinates, in the layout the projection gives them, (J, n).
+//
+// What bounds them: J n m exponentials each way (277M at the exact cell's
+// shape) on the exp unit, 16 a clock an SM, with 5-7 other f32
+// instructions a pair; K and G are n m floats, written or read once. Both
+// take k1d as one 2^x of prescaled coordinates as K4 and K5 do, the scale
+// applied as a tile is staged into shared memory (no coordinate pass).
+//
+// K6: a block a 64 x 64 tile of K, its J x 64 row and column coordinates in
+// shared memory, each thread K4's 4 x 4 block of the tile (gram_tile), K
+// stored once.
+//
+// K7: a block of 4 warps a 64 x 64 tile of G; warp (wy, wx) its 32 x 32
+// quarter, lane (ly, lx) = (lane / 4, lane % 4) rows wy 32 + 4 ly + i (i < 4)
+// and columns wx 32 + 8 lx + q (q < 8), its 32 values of G in registers for
+// all J components. Per component a pair costs a difference, one 2^x, the
+// cotangent's product and adds into the thread's row sums (for du1 and dw)
+// and column sums (for du2); the warp then reduce-scatters them by
+// shuffles in a fixed order (row sums over the 4 lanes of lx, column sums
+// over the 8 lanes of ly), each lane left with one row's and one column's
+// totals, which it stores into the tile's slabs in shared memory. At the
+// tile's end the block adds the two warps' slabs and writes the tile's row
+// sums to slot ct of du1p (CT, J, n), its column sums to slot rt of du2p
+// (RT, J, m) and its dw sums to dwp (RT CT, J). A second launch adds the
+// slots in order (dw in f64). No float atomics: every call repeats bit for
+// bit.
+
+namespace {
+
+constexpr int BJ_MAX = 32;    // K7: components per launch (its slabs)
+constexpr int BT = 64;        // K7: rows and columns of a tile
+constexpr int BNT = 128;      // K7: threads per block
+constexpr int SP = BT + 1;    // K7: slab row stride, odd: columns of it on distinct banks
+
+// s[j * BT + r] = c * u[j, r0 + r] for r < BT, 0 past `rows`: a tile's
+// coordinates, prescaled; u is (J, rows)
+__device__ __forceinline__ void stage_coords(float* s, const float* u,
+                                             int r0, int rows, int J,
+                                             float c, int nthreads) {
+  for (int e = threadIdx.x; e < J * BT; e += nthreads) {
+    const int j = e / BT, r = e - j * BT;
+    s[e] = r0 + r < rows ? c * __ldg(u + (size_t)j * rows + r0 + r) : 0.0f;
+  }
+}
+
+// K6: block t is tile (t / CT, t % CT) of 64 x 64, rows past n and
+// columns past m computed on zero coordinates and not stored. Dynamic
+// shared memory: (2 J FT + J) floats. acc: add to K instead of storing.
+template <int BASE>
+__global__ void __launch_bounds__(NT, 3)
+dense_gram_kernel(const float* __restrict__ u1, const float* __restrict__ u2,
+                  const float* __restrict__ w, float* __restrict__ K, int n,
+                  int m, int J, int acc) {
+  extern __shared__ __align__(16) float smem[];
+  float* s_z1 = smem;           // (J, FT), scaled
+  float* s_z2 = s_z1 + J * FT;  // (J, FT), scaled
+  float* s_w = s_z2 + J * FT;   // (J,)
+  const int CT = (m + FT - 1) / FT;
+  const int rt = blockIdx.x / CT, ct = blockIdx.x - rt * CT;
+  const int row0 = rt * FT, col0 = ct * FT;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const float c = coord_scale<BASE>();
+  stage_coords(s_z1, u1, row0, n, J, c, NT);
+  stage_coords(s_z2, u2, col0, m, J, c, NT);
+  for (int j = tid; j < J; j += NT) s_w[j] = w[j];
+  __syncthreads();
+  float ks[FR][FQ];
+  gram_tile<BASE>(ks, s_z1, s_z2, s_w, J, ty, tx);
+#pragma unroll
+  for (int i = 0; i < FR; ++i) {
+    const int row = row0 + ty * FR + i;
+    if (row >= n) continue;
+#pragma unroll
+    for (int q = 0; q < FQ; ++q) {
+      const int col = col0 + tx + 16 * q;
+      if (col < m) {
+        float* dst = K + (size_t)row * m + col;
+        *dst = acc ? *dst + ks[i][q] : ks[i][q];
+      }
+    }
+  }
+}
+
+// one pair of one component: the cotangent gm at prescaled difference d
+// gives its (unscaled) k1d' term tdz and its k1d term tdw (bwd_pair's
+// arithmetic)
+template <int BASE>
+__device__ __forceinline__ void bwd_terms(float d, float gm, float& tdz,
+                                          float& tdw) {
+  if (BASE == RBF) {
+    const float ge = gm * ex2(-d * d);
+    tdz = ge * d;
+    tdw = ge;
+  } else if (BASE == MATERN12) {
+    const float ge = gm * ex2(-fabsf(d));
+    tdw = ge;
+    tdz = d > 0.0f ? ge : (d < 0.0f ? -ge : 0.0f);  // sign(0) = 0
+  } else if (BASE == MATERN32) {
+    const float u = fabsf(d);
+    const float ge = gm * ex2(-u);
+    tdw = ge * fmaf(u, LN2, 1.0f);
+    tdz = ge * d;
+  } else {
+    const float u = fabsf(d);
+    const float ge = gm * ex2(-u);
+    tdw = ge * fmaf(u, fmaf(u, LN2SQ3, LN2), 1.0f);
+    tdz = (ge * d) * fmaf(u, LN2, 1.0f);
+  }
+}
+
+// one halving step of a reduce-scatter: of v[0 .. 2h) this lane keeps the
+// upper half if `upper`, its partner (lane ^ mask) the other, each adding
+// the partner's copy of the half it keeps: out[k] = keep[k] + partner's
+template <int H>
+__device__ __forceinline__ void halve(const float* v, float* out, bool upper,
+                                      int mask) {
+#pragma unroll
+  for (int k = 0; k < H; ++k) {
+    const float send = upper ? v[k] : v[k + H];
+    const float keep = upper ? v[k + H] : v[k];
+    out[k] = keep + __shfl_xor_sync(0xffffffffu, send, mask);
+  }
+}
+
+// K7: block t is tile (rt, ct) = (t / CT, t % CT) of G. Dynamic shared
+// memory: (2 J BT + 6 J SP) floats. same: u2 is u1 (n == m).
+template <int BASE>
+__global__ void __launch_bounds__(BNT, 4)
+dense_gram_bwd_kernel(const float* __restrict__ u1,
+                      const float* __restrict__ u2,
+                      const float* __restrict__ G, float* __restrict__ du1p,
+                      float* __restrict__ du2p, float* __restrict__ dwp,
+                      int n, int m, int J) {
+  extern __shared__ __align__(16) float smem[];
+  float* s_z1 = smem;               // (J, BT), scaled
+  float* s_z2 = s_z1 + J * BT;      // (J, BT), scaled
+  float* s_rdz = s_z2 + J * BT;     // 2 x (J, SP): row sums of k1d' by wx
+  float* s_rdw = s_rdz + 2 * J * SP;  // 2 x (J, SP): row sums of k1d by wx
+  float* s_cdz = s_rdw + 2 * J * SP;  // 2 x (J, SP): column sums by wy
+
+  const int CT = (m + BT - 1) / BT;
+  const int rt = blockIdx.x / CT, ct = blockIdx.x - rt * CT;
+  const int row0 = rt * BT, col0 = ct * BT;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wy = warp >> 1, wx = warp & 1, ly = lane >> 2, lx = lane & 3;
+  const int r0 = wy * 32 + ly * 4;  // the thread's first row in the tile
+  const int q0 = wx * 32 + lx * 8;  // its first column
+  const float c = coord_scale<BASE>();
+  stage_coords(s_z1, u1, row0, n, J, c, BNT);
+  stage_coords(s_z2, u2, col0, m, J, c, BNT);
+
+  float g[4][8];  // G at the thread's rows and columns, 0 past n and m
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = row0 + r0 + i;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int col = col0 + q0 + q;
+      g[i][q] = row < n && col < m ? __ldg(G + (size_t)row * m + col) : 0.0f;
+    }
+  }
+  __syncthreads();
+
+#pragma unroll 1
+  for (int j = 0; j < J; ++j) {
+    const float4 a4 = *reinterpret_cast<const float4*>(s_z1 + j * BT + r0);
+    const float4 b0 = *reinterpret_cast<const float4*>(s_z2 + j * BT + q0);
+    const float4 b1 =
+        *reinterpret_cast<const float4*>(s_z2 + j * BT + q0 + 4);
+    const float a[4] = {a4.x, a4.y, a4.z, a4.w};
+    const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+    float rs[8];  // (row i's k1d' sum, its k1d sum) at 2 i, 2 i + 1
+    float cs[8];  // column q's k1d' sum
+#pragma unroll
+    for (int k = 0; k < 8; ++k) rs[k] = cs[k] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        float tdz, tdw;
+        bwd_terms<BASE>(a[i] - b[q], g[i][q], tdz, tdw);
+        rs[2 * i] += tdz;
+        rs[2 * i + 1] += tdw;
+        cs[q] += tdz;
+      }
+    // columns over the 8 lanes of ly (lane bits 4, 3, 2 pick q's bits 2,
+    // 1, 0): lane (ly, lx) is left with column q = ly
+    float c4[4], c2[2], c1[1];
+    halve<4>(cs, c4, lane & 16, 16);
+    halve<2>(c4, c2, lane & 8, 8);
+    halve<1>(c2, c1, lane & 4, 4);
+    // rows over the 4 lanes of lx (lane bits 1, 0 pick i's bits 1, 0):
+    // lane (ly, lx) is left with row i = lx, (k1d' sum, k1d sum)
+    float r4[4], r2[2];
+    halve<4>(rs, r4, lane & 2, 2);
+    halve<2>(r4, r2, lane & 1, 1);
+    s_cdz[(wy * J + j) * SP + q0 + ly] = c1[0];
+    s_rdz[(wx * J + j) * SP + r0 + lx] = r2[0];
+    s_rdw[(wx * J + j) * SP + r0 + lx] = r2[1];
+  }
+  __syncthreads();
+
+  for (int e = tid; e < J * BT; e += BNT) {
+    const int j = e / BT, r = e - j * BT;
+    if (row0 + r < n)
+      du1p[((size_t)ct * J + j) * n + row0 + r] =
+          s_rdz[j * SP + r] + s_rdz[(J + j) * SP + r];
+    if (col0 + r < m)
+      du2p[((size_t)rt * J + j) * m + col0 + r] =
+          s_cdz[j * SP + r] + s_cdz[(J + j) * SP + r];
+  }
+  for (int j = tid; j < J; j += BNT) {
+    float v = 0.0f;
+    for (int r = 0; r < BT; ++r) v += s_rdw[j * SP + r];
+    for (int r = 0; r < BT; ++r) v += s_rdw[(J + j) * SP + r];
+    dwp[(size_t)blockIdx.x * J + j] = v;
+  }
+}
+
+// K7's second launch. Blocks [0, du_blocks): du1[j, i] = scale w_j (sum_ct
+// du1p[ct, j, i] - (same ? sum_rt du2p[rt, j, i] : 0)), and where not same
+// du2[j, k] = -scale w_j sum_rt du2p[rt, j, k], the slots in order. Block
+// du_blocks + j: dw[j] = the sum of the tiles' dwp[t, j], thread x adding
+// tiles x, x + NT, .. in f64, then a fixed tree over the threads.
+__global__ void __launch_bounds__(NT)
+dense_gram_bwd_sum_kernel(const float* __restrict__ du1p,
+                          const float* __restrict__ du2p,
+                          const float* __restrict__ dwp,
+                          const float* __restrict__ w, float* __restrict__ du1,
+                          float* __restrict__ du2, float* __restrict__ dw,
+                          int n, int m, int J, int same, float scale,
+                          int du_blocks) {
+  if (blockIdx.x >= du_blocks) {
+    __shared__ double s[NT];
+    const int j = blockIdx.x - du_blocks, tid = threadIdx.x;
+    const int tiles = ((n + BT - 1) / BT) * ((m + BT - 1) / BT);
+    double v = 0.0;
+    for (int t = tid; t < tiles; t += NT) v += (double)dwp[(size_t)t * J + j];
+    s[tid] = v;
+    for (int h = NT / 2; h > 0; h >>= 1) {
+      __syncthreads();
+      if (tid < h) s[tid] += s[tid + h];
+    }
+    if (tid == 0) dw[j] = (float)s[0];
+    return;
+  }
+  const int RT = (n + BT - 1) / BT, CT = (m + BT - 1) / BT;
+  const size_t rows = (size_t)J * n, total = same ? rows : rows + (size_t)J * m;
+  for (size_t e = (size_t)blockIdx.x * NT + threadIdx.x; e < total;
+       e += (size_t)du_blocks * NT) {
+    if (e < rows) {
+      const int j = (int)(e / n), i = (int)(e - (size_t)j * n);
+      float v = 0.0f;
+      for (int ct = 0; ct < CT; ++ct) v += du1p[((size_t)ct * J + j) * n + i];
+      if (same) {
+        float u = 0.0f;
+        for (int rt = 0; rt < RT; ++rt)
+          u += du2p[((size_t)rt * J + j) * m + i];
+        v -= u;
+      }
+      du1[e] = (scale * w[j]) * v;
+    } else {
+      const size_t e2 = e - rows;
+      const int j = (int)(e2 / m), k = (int)(e2 - (size_t)j * m);
+      float v = 0.0f;
+      for (int rt = 0; rt < RT; ++rt) v += du2p[((size_t)rt * J + j) * m + k];
+      du2[e2] = -(scale * w[j]) * v;
+    }
+  }
+}
+
+// the kernel of base `base` among a template's four instances
+#define RPAGP_BY_BASE(kernel, base)                              \
+  ((base) == RBF        ? (const void*)kernel<RBF>               \
+   : (base) == MATERN12 ? (const void*)kernel<MATERN12>          \
+   : (base) == MATERN32 ? (const void*)kernel<MATERN32>          \
+   : (base) == MATERN52 ? (const void*)kernel<MATERN52>          \
+                        : nullptr)
+
+cudaError_t launch(const void* fn, int grid, int threads, void** args,
+                   size_t bytes, cudaStream_t s) {
+  if (bytes > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return e;
+  }
+  cudaError_t e = cudaLaunchKernel(fn, dim3(grid), dim3(threads), args, bytes, s);
+  if (e != cudaSuccess) (void)cudaGetLastError();
+  return e;
+}
+
+}  // namespace
+
+// K6. u1 (J, n), u2 (J, m), w (J,) contiguous f32 -> K (n, m) contiguous
+// f32; base 0..3 = rbf, matern12, matern32, matern52; 1 <= J <= 64 (the
+// wrapper adds the launches of groups of 64 components, acc = 1 after the
+// first). Returns cudaGetLastError().
+extern "C" int rpagp_dense_gram(const float* u1, const float* u2,
+                                const float* w, float* K, int n, int m, int J,
+                                int base, int acc, void* stream) {
+  if (J < 1 || J > J_MAX || n < 1 || m < 1) return (int)cudaErrorInvalidValue;
+  const void* fn = RPAGP_BY_BASE(dense_gram_kernel, base);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  const long long tiles = (long long)((n + FT - 1) / FT) * ((m + FT - 1) / FT);
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const size_t bytes = sizeof(float) * (2 * J * FT + J);
+  void* args[] = {(void*)&u1, (void*)&u2, (void*)&w, (void*)&K,
+                  (void*)&n,  (void*)&m,  (void*)&J, (void*)&acc};
+  cudaError_t e = launch(fn, (int)tiles, NT, args, bytes, (cudaStream_t)stream);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+// K7. u1 (J, n), u2 (J, m), w (J,), G (n, m) contiguous f32 -> du1 (J, n),
+// du2 (J, m) (unused where same), dw (J,); same: u2 is u1 and n == m, du1
+// then takes du1 + du2. 1 <= J <= 32 (the wrapper launches once a group of
+// 32 components). scratch: f32 of CT J n + RT J m + RT CT J floats, RT =
+// ceil(n / 64), CT = ceil(m / 64): the tiles' row sums, column sums and dw
+// sums. Returns cudaGetLastError().
+extern "C" int rpagp_dense_gram_bwd(const float* u1, const float* u2,
+                                    const float* w, const float* G,
+                                    float* du1, float* du2, float* dw,
+                                    float* scratch, int n, int m, int J,
+                                    int base, int same, void* stream) {
+  if (J < 1 || J > BJ_MAX || n < 1 || m < 1 || (same && n != m))
+    return (int)cudaErrorInvalidValue;
+  const void* fn = RPAGP_BY_BASE(dense_gram_bwd_kernel, base);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const long long RT = (n + BT - 1) / BT, CT = (m + BT - 1) / BT;
+  if (RT * CT > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  float* du1p = scratch;
+  float* du2p = du1p + (size_t)CT * J * n;
+  float* dwp = du2p + (size_t)RT * J * m;
+  const size_t bytes = sizeof(float) * (2 * J * BT + 6 * J * SP);
+  void* args[] = {(void*)&u1,  (void*)&u2, (void*)&G, (void*)&du1p,
+                  (void*)&du2p, (void*)&dwp, (void*)&n, (void*)&m,
+                  (void*)&J};
+  cudaError_t e = launch(fn, (int)(RT * CT), BNT, args, bytes, s);
+  if (e != cudaSuccess) return (int)e;
+  const size_t total = (size_t)J * n + (same ? 0 : (size_t)J * m);
+  const size_t need = (total + NT - 1) / NT;
+  const int du_blocks = need < 4096 ? (int)need : 4096;
+  const float scale = dz_scale_of(base);
+  dense_gram_bwd_sum_kernel<<<du_blocks + J, NT, 0, s>>>(
+      du1p, du2p, dwp, w, du1, du2, dw, n, m, J, same, scale, du_blocks);
   return (int)cudaGetLastError();
 }

@@ -42,6 +42,9 @@ _SIGNATURES = {
     "rpagp_gram_mvm_bwd_grid": [_I, _I, _I, _P],
     "rpagp_gram_mvm_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _I, _I, _P],
+    "rpagp_dense_gram": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "rpagp_dense_gram_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _P],
 }
 
 _lib = None

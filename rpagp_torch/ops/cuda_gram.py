@@ -24,6 +24,19 @@ the exp unit (one 2^x of prescaled coordinates, csrc/gram_mvm.cu). Each
 launch is planned per shape (`gram_mvm_plan`, `gram_mvm_bwd_plan`): a
 persistent grid of G blocks over (row tile, z2 chunk) items, whose
 partial sums second kernels add in chunk order.
+
+K6 / K7 (csrc/gram_mvm.cu, after K5): the dense projected Gram itself and
+its backward, for the exact GP's K(x1, x2), in the projection's layout:
+
+  dense_gram_fwd(u1, u2, w, base)        K (n, m)
+  dense_gram_bwd(u1, u2, w, G, base)     (du1 (J, n), du2 (J, m), dw (J,))
+
+with K[i, k] = sum_j w_j k1d(u1[j, i] - u2[j, k]); u1 (J, n), u2 (J, m)
+the lengthscale-scaled projected coordinates. `dense_gram` is the
+differentiable Gram (a torch.autograd.Function that saves u1, u2 and w
+and nothing of size J n m). A CPU tensor takes the plain twins (the same
+closed-form math in row blocks), a CUDA tensor the kernels; the
+`rpagp.op.dense_gram` span records each call's (J, n, m, direction).
 """
 
 from __future__ import annotations
@@ -35,14 +48,18 @@ import torch
 
 from . import _build
 from .kernels import _k1d as k1d_tile
+from ..utils.profiling import span
 
 # launches of the CUDA kernels, per entry point
-launches = {"gram_mvm": 0, "gram_mvm_bwd": 0}
+launches = {"gram_mvm": 0, "gram_mvm_bwd": 0, "dense_gram": 0,
+            "dense_gram_bwd": 0}
 
 BASES = ("rbf", "matern12", "matern32", "matern52")
 J_MAX = 64  # csrc/gram_mvm.cu J_MAX: components per launch
 TILE = 64  # csrc/gram_mvm.cu FT: K4's rows and z2 columns per Gram tile
 BWD_ROWS, BWD_COLS = 64, 128  # csrc/gram_mvm.cu BR, BL: K5's Gram tile
+DENSE_TILE = 64  # csrc/gram_mvm.cu FT, BT: K6's and K7's tiles of K and G
+DENSE_BWD_J_MAX = 32  # csrc/gram_mvm.cu BJ_MAX: K7's components per launch
 MAX_CHUNKS = 32  # K4: the most z2 chunks (partial-sum slots) of one call
 _PLAIN_ELEMS = 1 << 25  # plain versions: (rows, m, J) elements per block
 
@@ -70,14 +87,16 @@ def k1d_grad_tile(base: str, d):
     raise ValueError(f"unknown 1-D base kernel {base!r}")
 
 
-def _plain_rows(z1, z2):
-    return max(1, _PLAIN_ELEMS // max(1, z2.shape[0] * z1.shape[1]))
+def _plain_rows(J: int, m: int) -> int:
+    """Rows a block of the plain versions: (rows, m, J) within
+    _PLAIN_ELEMS."""
+    return max(1, _PLAIN_ELEMS // max(1, J * m))
 
 
 def gram_mvm_plain(z1, z2, w, V, base: str = "rbf"):
     """out = K V by row blocks of the dense (rows, m, J) difference tensor."""
     out = torch.empty(z1.shape[0], V.shape[1], dtype=V.dtype, device=V.device)
-    rows = _plain_rows(z1, z2)
+    rows = _plain_rows(z1.shape[1], z2.shape[0])
     for s in range(0, z1.shape[0], rows):
         d = z1[s:s + rows, None, :] - z2[None, :, :]  # (rows, m, J)
         K = torch.sum(k1d_tile(base, d) * w, dim=-1)  # (rows, m)
@@ -89,7 +108,7 @@ def gram_mvm_bwd_plain(z1, z2, w, V, G, base: str = "rbf"):
     """(dz1, dw) of out = K V for cotangent G (n, t), by row blocks."""
     dz = torch.empty_like(z1)
     dw = torch.zeros_like(w)
-    rows = _plain_rows(z1, z2)
+    rows = _plain_rows(z1.shape[1], z2.shape[0])
     for s in range(0, z1.shape[0], rows):
         Gm = (G[s:s + rows] @ V.T)[:, :, None]  # (rows, m, 1)
         d = z1[s:s + rows, None, :] - z2[None, :, :]
@@ -98,18 +117,24 @@ def gram_mvm_bwd_plain(z1, z2, w, V, G, base: str = "rbf"):
     return dz, dw
 
 
-def _check_cuda(name, base, z1, z2, w, *mats):
+def _check_tensors(name, base, *xs):
+    """A known base; float32, contiguous CUDA tensors on one device."""
     if base not in BASES:
         raise ValueError(f"{name}: unknown base {base!r}")
-    for x in (z1, z2, w, *mats):
+    for x in xs:
         if x.device.type != "cuda" or x.dtype != torch.float32:
             raise TypeError(f"{name} needs float32 CUDA tensors, got "
                             f"{x.dtype} on {x.device}")
-        if x.device != z1.device:
-            raise ValueError(f"{name}: tensors on {z1.device} and {x.device}")
+        if x.device != xs[0].device:
+            raise ValueError(f"{name}: tensors on {xs[0].device} and "
+                             f"{x.device}")
         if not x.is_contiguous():
             raise ValueError(f"{name} needs contiguous tensors, got strides "
                              f"{x.stride()} for shape {tuple(x.shape)}")
+
+
+def _check_cuda(name, base, z1, z2, w, *mats):
+    _check_tensors(name, base, z1, z2, w, *mats)
     J = z1.shape[1] if z1.ndim == 2 else -1
     if (z1.ndim != 2 or z2.ndim != 2 or z2.shape[1] != J or w.shape != (J,)
             or J < 1):
@@ -312,9 +337,165 @@ def projected_gram_mvm(z1, z2, w, V, base: str = "rbf"):
     return _ProjectedGramMVM.apply(z1, z2, w, V, base)
 
 
-def supports(spec) -> bool:
-    """Specs whose Gram the kernels compute: a projection kernel with one
-    base for all components, every degree 1, sub_dim 1, no SKI."""
+def dense_supports(spec) -> bool:
+    """Specs whose dense Gram K6 / K7 compute: a projection kernel with one
+    base for all components, every degree 1, sub_dim 1."""
     return (spec.is_projection and len(set(spec.bases)) == 1
-            and all(d == 1 for d in spec.degrees) and spec.sub_dim == 1
-            and not spec.ski)
+            and all(d == 1 for d in spec.degrees) and spec.sub_dim == 1)
+
+
+def supports(spec) -> bool:
+    """Specs whose Gram MVM K4 / K5 compute: those of dense_supports, no
+    SKI."""
+    return dense_supports(spec) and not spec.ski
+
+
+# ------------------------------------------------ K6 / K7: the dense Gram
+
+
+def dense_gram_plain(u1, u2, w, base: str = "rbf"):
+    """K (n, m) by row blocks of the (J, rows, m) differences."""
+    n = u1.shape[1]
+    out = torch.empty(n, u2.shape[1], dtype=u1.dtype, device=u1.device)
+    rows = _plain_rows(*u2.shape)
+    for s in range(0, n, rows):
+        d = u1[:, s:s + rows, None] - u2[:, None, :]  # (J, rows, m)
+        out[s:s + rows] = torch.tensordot(w, k1d_tile(base, d), dims=1)
+    return out
+
+
+def dense_gram_bwd_plain(u1, u2, w, G, base: str = "rbf"):
+    """(du1 (J, n), du2 (J, m), dw (J,)) of K = dense_gram(u1, u2, w) for
+    the cotangent G (n, m), by the closed form, in row blocks."""
+    du1 = torch.empty_like(u1)
+    du2 = torch.zeros_like(u2)
+    dw = torch.zeros_like(w)
+    rows = _plain_rows(*u2.shape)
+    for s in range(0, u1.shape[1], rows):
+        d = u1[:, s:s + rows, None] - u2[:, None, :]  # (J, rows, m)
+        g = G[None, s:s + rows]
+        gp = g * k1d_grad_tile(base, d)
+        du1[:, s:s + rows] = w[:, None] * torch.sum(gp, dim=2)
+        du2 -= w[:, None] * torch.sum(gp, dim=1)
+        dw += torch.sum(g * k1d_tile(base, d), dim=(1, 2))
+    return du1, du2, dw
+
+
+def _check_dense(name, base, u1, u2, w, *mats):
+    _check_tensors(name, base, u1, u2, w, *mats)
+    J = u1.shape[0] if u1.ndim == 2 else -1
+    if (u1.ndim != 2 or u2.ndim != 2 or u2.shape[0] != J or w.shape != (J,)
+            or J < 1):
+        raise ValueError(f"{name} expects u1 (J, n), u2 (J, m), w (J,) with "
+                         f"J >= 1, got {tuple(u1.shape)}, "
+                         f"{tuple(u2.shape)}, {tuple(w.shape)}")
+
+
+def dense_gram_cuda(u1, u2, w, base: str = "rbf"):
+    """K6: one launch a group of at most J_MAX components, each after the
+    first adding its Gram into K."""
+    _check_dense("dense_gram", base, u1, u2, w)
+    J, n = u1.shape
+    m = u2.shape[1]
+    out = torch.empty(n, m, dtype=u1.dtype, device=u1.device)
+    if n == 0 or m == 0:
+        return out
+    for j0 in range(0, J, J_MAX):
+        j1 = min(J, j0 + J_MAX)
+        err = _build.lib().rpagp_dense_gram(
+            u1[j0].data_ptr(), u2[j0].data_ptr(), w[j0].data_ptr(),
+            out.data_ptr(), n, m, j1 - j0, BASES.index(base), int(j0 > 0),
+            _build.stream_ptr(u1.device))
+        _build.check(err, "dense_gram kernel")
+        launches["dense_gram"] += 1
+    return out
+
+
+def _dense_bwd_scratch(n: int, m: int, J: int) -> int:
+    """Floats of K7's scratch (rpagp_dense_gram_bwd): the tiles' row sums
+    (CT, J, n), column sums (RT, J, m) and dw sums (RT CT, J)."""
+    RT, CT = -(-n // DENSE_TILE), -(-m // DENSE_TILE)
+    return J * (CT * n + RT * m + RT * CT)
+
+
+def dense_gram_bwd_cuda(u1, u2, w, G, base: str = "rbf"):
+    """K7: one launch pair a group of at most DENSE_BWD_J_MAX components.
+    Pass the same tensor as u1 and u2 for K(x, x): du1 is then the whole
+    gradient of the coordinates and du2 is None."""
+    _check_dense("dense_gram_bwd", base, u1, u2, w, G)
+    J, n = u1.shape
+    m = u2.shape[1]
+    if G.shape != (n, m):
+        raise ValueError(f"dense_gram_bwd expects G (n={n}, m={m}), got "
+                         f"{tuple(G.shape)}")
+    same = u2 is u1
+    du1 = torch.empty_like(u1)
+    du2 = None if same else torch.empty_like(u2)
+    dw = torch.empty_like(w)
+    if n == 0 or m == 0:
+        du1.zero_()
+        return du1, None if same else du2.zero_(), dw.zero_()
+    scratch = torch.empty(_dense_bwd_scratch(n, m, min(J, DENSE_BWD_J_MAX)),
+                          dtype=u1.dtype, device=u1.device)
+    for j0 in range(0, J, DENSE_BWD_J_MAX):
+        j1 = min(J, j0 + DENSE_BWD_J_MAX)
+        err = _build.lib().rpagp_dense_gram_bwd(
+            u1[j0].data_ptr(), u2[j0].data_ptr(), w[j0].data_ptr(),
+            G.data_ptr(), du1[j0].data_ptr(),
+            du1[j0].data_ptr() if same else du2[j0].data_ptr(),
+            dw[j0].data_ptr(), scratch.data_ptr(), n, m, j1 - j0,
+            BASES.index(base), int(same), _build.stream_ptr(u1.device))
+        _build.check(err, "dense_gram_bwd kernel")
+        launches["dense_gram_bwd"] += 1
+    return du1, du2, dw
+
+
+def dense_gram_fwd(u1, u2, w, base: str = "rbf"):
+    """K (n, m) = sum_j w_j k1d(u1[j, :, None] - u2[j, None, :])."""
+    with span("rpagp.op.dense_gram", (u1.shape[0], u1.shape[1], u2.shape[1],
+                                      "fwd")):
+        if u1.device.type == "cpu":
+            return dense_gram_plain(u1, u2, w, base)
+        if u1.device.type == "cuda":
+            return dense_gram_cuda(u1, u2, w, base)
+    raise TypeError(f"dense_gram: no kernel for device {u1.device}")
+
+
+def dense_gram_bwd(u1, u2, w, G, base: str = "rbf"):
+    """(du1, du2, dw) for the cotangent G (n, m); where u2 is u1, du1 is
+    the whole gradient of the coordinates and du2 is None."""
+    with span("rpagp.op.dense_gram", (u1.shape[0], u1.shape[1], u2.shape[1],
+                                      "bwd")):
+        if u1.device.type == "cpu":
+            du1, du2, dw = dense_gram_bwd_plain(u1, u2, w, G, base)
+            return (du1 + du2, None, dw) if u2 is u1 else (du1, du2, dw)
+        if u1.device.type == "cuda":
+            return dense_gram_bwd_cuda(u1, u2, w, G, base)
+    raise TypeError(f"dense_gram_bwd: no kernel for device {u1.device}")
+
+
+class _DenseGram(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, u1, u2, w, base):
+        # u2 None: K(x, x), one set of coordinates on both sides
+        ctx.base = base
+        ctx.save_for_backward(u1, u2, w)
+        return dense_gram_fwd(u1, u1 if u2 is None else u2, w, base)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, G):
+        u1, u2, w = ctx.saved_tensors
+        du1, du2, dw = dense_gram_bwd(u1, u1 if u2 is None else u2, w,
+                                      G.contiguous(), ctx.base)
+        return du1, du2, dw, None
+
+
+def dense_gram(u1, u2, w, base: str = "rbf"):
+    """The dense Gram (n, m) of the degree-1 additive projected kernel,
+    differentiable in u1 (J, n), u2 (J, m) and w (J,), storing no (J, n,
+    m) tensor. Pass the same tensor as u1 and u2 for K(x, x)."""
+    same = u2 is u1
+    return _DenseGram.apply(u1.contiguous(),
+                            None if same else u2.contiguous(),
+                            w.contiguous(), base)

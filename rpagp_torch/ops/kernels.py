@@ -189,13 +189,32 @@ def _projected_coords(spec: KernelSpec, params, buffers, x):
 
 
 def _projection_gram(spec: KernelSpec, params, buffers, x1, x2):
-    """Dense RPA Gram (n, m); materializes (J, n, m) per group, so only for
-    small blocks (the CG path goes through `mvm`)."""
+    """Dense RPA Gram (n, m). A float32 Gram of a spec the kernels support
+    (cuda_gram.dense_supports) is cuda_gram.dense_gram: K6 / K7 on the
+    card, their plain twins on the CPU, nothing of size (J, n, m) stored.
+    Any other materializes (J, n, m) per group, so only for small blocks
+    (the CG path goes through `mvm`).
+
+    `not spec.ski` is a limit of scope for now, not one of the kernels: it
+    keeps a SKI spec's Grams (the SKI + BBMM preconditioner's pivot rows,
+    the grid posterior's K_ss) on the materialized path until a change
+    measured on the SKI + BBMM step moves them."""
+    from . import cuda_gram
+
     u1 = _projected_coords(spec, params, buffers, x1)  # (M, n)
     u2 = u1 if x2 is x1 else _projected_coords(spec, params, buffers, x2)
     w = _component_scales(spec, params)
-    n, m = x1.shape[0], x2.shape[0]
-    out = torch.zeros(n, m, dtype=x1.dtype, device=x1.device)
+    if (x1.dtype == x2.dtype == torch.float32
+            and cuda_gram.dense_supports(spec) and not spec.ski):
+        return cuda_gram.dense_gram(u1, u2, w, spec.bases[0])
+    return _materialized_projection_gram(spec, u1, u2, w)
+
+
+def _materialized_projection_gram(spec: KernelSpec, u1, u2, w):
+    """The Gram from (M, n) and (M, m) coordinates through the (J, n, m)
+    differences and values of each group of components."""
+    n, m = u1.shape[1], u2.shape[1]
+    out = torch.zeros(n, m, dtype=u1.dtype, device=u1.device)
     for d, base, comp_idx, flat_idx in _component_groups(spec):
         dk = d * spec.sub_dim  # 1-D factors per component
         t = (_take(u1, flat_idx)[:, :, None]

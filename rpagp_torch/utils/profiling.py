@@ -13,7 +13,7 @@
     tied by its `correlation` id to the launch inside the span. Entering
     it appends `(name, *record)` to the op records when the caller
     passes a record (the K2 / K3 dispatchers pass their (J, n, t, m),
-    K1's its (B, b)),
+    K1's its (B, b), K6 / K7's their (J, n, m, direction)),
     and counts the entry when the name is one of `COUNTED` (the
     training steps and the host reads). Otherwise it returns one shared
     no-op, after a single read of torch's profiler flag: there is no
@@ -69,6 +69,7 @@ SPANS = (
     ("rpagp.exact.factor", "dense step"),
     ("rpagp.exact.solve", "dense step"),
     ("rpagp.op.chol_linv", "kernels"),
+    ("rpagp.op.dense_gram", "kernels"),
 )
 
 # the spans whose entries are counted while a profiler records

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from rpagp_torch.ops import cuda_chol, cuda_gram, cuda_interp
+from rpagp_torch.ops.kernels import KernelSpec
 
 
 def _rel(a, b):
@@ -460,6 +461,164 @@ def test_gram_mvm_bwd_training_shape_repeats(cuda_device):
     for _ in range(20):
         dz2, dw2 = cuda_gram.gram_mvm_bwd_cuda(*args, "rbf")
         assert torch.equal(dz, dz2) and torch.equal(dw, dw2)
+
+
+def _dense_case(J, n, m, seed, dev, same=False):
+    """K6 / K7's inputs: coordinates as the projection gives them, (J, n)
+    and (J, m), with coincident points (d = 0); weights; a cotangent G (n,
+    m) that is not symmetric; and float64 copies for the twins."""
+    rng = np.random.default_rng(seed)
+    u1 = (1.5 * rng.standard_normal((J, n))).astype(np.float32)
+    u2 = u1 if same else (1.5 * rng.standard_normal((J, m))).astype(np.float32)
+    if not same and min(n, m) > 1:
+        k = min(5, n, m)
+        u2[:, :k] = u1[:, :k]
+    w = (0.2 + rng.random(J)).astype(np.float32)
+    G = rng.standard_normal((n, m)).astype(np.float32)
+    ts = [torch.from_numpy(a).to(dev) for a in (u1, u2, w, G)]
+    if same:
+        ts[1] = ts[0]
+    t64 = [a.double() for a in ts]
+    if same:
+        t64[1] = t64[0]
+    return ts, t64
+
+
+# (J, n, m, same): the exact cell's K(x, x); its predictor's cross Gram;
+# pivoted Cholesky's one-row Gram and a few rows (mostly padding); ragged
+# tiles; J above K7's 32 components a launch and K6's 64
+DENSE_SHAPES = [(20, 3723, 3723, True), (20, 414, 3723, False),
+                (20, 1, 3723, False), (7, 5, 700, False), (20, 9, 130, False),
+                (10, 100, 77, False), (3, 1, 1, False), (10, 65, 65, True),
+                (33, 200, 150, False), (65, 130, 130, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("base", cuda_gram.BASES)
+@pytest.mark.parametrize("J,n,m,same", DENSE_SHAPES)
+def test_dense_gram_matches_twin(cuda_device, base, J, n, m, same):
+    """K6 and K7 against their plain twins in float64: K rel <= 1e-5, du1,
+    du2, dw rel <= 1e-5; one K6 launch a group of 64 components, one K7
+    launch a group of 32; K(x, x) exactly symmetric."""
+    (u1, u2, w, G), (a1, a2, aw, aG) = _dense_case(J, n, m, seed=J + n,
+                                                   dev=cuda_device, same=same)
+    before = dict(cuda_gram.launches)
+    K = cuda_gram.dense_gram_cuda(u1, u2, w, base)
+    du1, du2, dw = cuda_gram.dense_gram_bwd_cuda(u1, u2, w, G, base)
+    torch.cuda.synchronize()
+    assert cuda_gram.launches["dense_gram"] - before["dense_gram"] == -(-J // 64)
+    assert (cuda_gram.launches["dense_gram_bwd"]
+            - before["dense_gram_bwd"]) == -(-J // 32)
+    assert _rel(K, cuda_gram.dense_gram_plain(a1, a2, aw, base)) <= 1e-5
+    p1, p2, pw = cuda_gram.dense_gram_bwd_plain(a1, a2, aw, aG, base)
+    if same:
+        assert du2 is None and torch.equal(K, K.T)
+        p1 = p1 + p2
+    else:
+        assert _rel(du2, p2) <= 1e-5
+    assert _rel(du1, p1) <= 1e-5 and _rel(dw, pw) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_dense_gram_bwd_repeats_bit_for_bit(cuda_device):
+    """The exact cell's shape: two K7 calls (and two K6 calls) give the
+    same bits."""
+    (u1, u2, w, G), _ = _dense_case(20, 3723, 3723, seed=3, dev=cuda_device,
+                                    same=True)
+    K = cuda_gram.dense_gram_cuda(u1, u2, w, "rbf")
+    assert torch.equal(K, cuda_gram.dense_gram_cuda(u1, u2, w, "rbf"))
+    du, _, dw = cuda_gram.dense_gram_bwd_cuda(u1, u2, w, G, "rbf")
+    du2, _, dw2 = cuda_gram.dense_gram_bwd_cuda(u1, u2, w, G, "rbf")
+    assert torch.equal(du, du2) and torch.equal(dw, dw2)
+
+
+@pytest.mark.cuda
+def test_dense_gram_rejects_bad_inputs(cuda_device):
+    (u1, u2, w, G), _ = _dense_case(4, 70, 50, seed=1, dev=cuda_device)
+    with pytest.raises(ValueError):
+        cuda_gram.dense_gram_cuda(u1.t(), u2, w)  # not contiguous
+    with pytest.raises(ValueError):
+        cuda_gram.dense_gram_cuda(u1, u2[:3].contiguous(), w)
+    with pytest.raises(TypeError):
+        cuda_gram.dense_gram_cuda(u1, u2.double(), w)
+    with pytest.raises(ValueError):
+        cuda_gram.dense_gram_bwd_cuda(u1, u2, w, G.t().contiguous())
+
+
+@pytest.mark.cuda
+def test_exact_mll_through_k6_k7_at_the_cell_size(cuda_device):
+    """exact_gp.exact_mll of J = 20 degree-1 RBF projections at n = 3,723,
+    D = 26 (the exact cell's step): one K6 and one K7 launch, the device
+    peak of the value and gradient under 1.5 GiB above what was allocated
+    before, and value rel <= 1e-5, gradient relerr <= 1e-4 against the
+    same MLL in float64 on the CPU (the float64 Gram takes the (J, n, m)
+    path)."""
+    from rpagp_torch.models import exact_gp
+    from rpagp_torch.models.exact_gp import ModelSpec
+
+    spec = ModelSpec(kernel=KernelSpec.polynomial(J=20))
+    rng = np.random.default_rng(11)
+    n, D = 3723, 26
+    x = rng.standard_normal((n, D)).astype(np.float32)
+    y = (np.sin(x @ rng.standard_normal(D) / 3.0)
+         + 0.1 * rng.standard_normal(n)).astype(np.float32)
+    p0, b0 = exact_gp.init_model(spec, D,
+                                 generator=torch.Generator().manual_seed(3),
+                                 device="cpu")
+    out = {}
+    for d, dtype in ((cuda_device, torch.float32), ("cpu", torch.float64)):
+        def to(tree):
+            return {k: to(v) if isinstance(v, dict)
+                    else v.to(d, dtype, copy=True) for k, v in tree.items()}
+
+        p, b = to(p0), to(b0)
+        leaves = [p["raw_noise"], p["mean_const"], *p["kernel"].values()]
+        for t in leaves:
+            t.requires_grad_(True)
+        xd = torch.from_numpy(x).to(d, dtype)
+        yd = torch.from_numpy(y).to(d, dtype)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        before = dict(cuda_gram.launches)
+        v = exact_gp.exact_mll(spec, p, b, xd, yd)
+        v.backward()
+        torch.cuda.synchronize()
+        if dtype == torch.float32:
+            peak = torch.cuda.max_memory_allocated() - base
+            print(f"exact_mll n = {n}: peak {peak / 2 ** 30:.4f} GiB")
+            assert peak < 1.5 * 2 ** 30
+            assert {k: cuda_gram.launches[k] - before[k]
+                    for k in ("dense_gram", "dense_gram_bwd")} == {
+                        "dense_gram": 1, "dense_gram_bwd": 1}
+        out[dtype] = (float(v.detach()),
+                      [t.grad.double().cpu() for t in leaves])
+    (vg, gg), (vc, gc) = out[torch.float32], out[torch.float64]
+    assert abs(vg - vc) <= 1e-5 * abs(vc)
+    num = sum(float(((a - b) ** 2).sum()) for a, b in zip(gg, gc))
+    den = sum(float((b ** 2).sum()) for b in gc)
+    assert math.sqrt(num / den) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_ski_spec_gram_takes_no_dense_kernel(cuda_device):
+    """A SKI spec's Gram (the SKI + BBMM preconditioner's pivot rows)
+    stays on the plain path: the dispatch keeps SKI specs off K6 / K7
+    (though dense_supports() takes the kernel), and neither launches."""
+    from rpagp_torch.ops import kernels
+
+    spec = KernelSpec.polynomial(J=20, ski=True, grid_size=256)
+    assert cuda_gram.dense_supports(spec) and not cuda_gram.supports(spec)
+    kp, kb = kernels.init_kernel_params(
+        spec, 11, generator=torch.Generator().manual_seed(0),
+        device=cuda_device)
+    kp["raw_lengthscale"].requires_grad_(True)
+    x = torch.randn(500, 11, device=cuda_device)
+    before = dict(cuda_gram.launches)
+    kernels.gram(spec, kp, kb, x[:1], x).sum().backward()
+    kernels.gram(spec, kp, kb, x, x).sum().backward()
+    torch.cuda.synchronize()
+    assert cuda_gram.launches == before
 
 
 def _interp_case(J, n, m, t, kind, seed, dev):

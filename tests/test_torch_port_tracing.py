@@ -21,7 +21,7 @@ from rpagp_torch import train
 from rpagp_torch.mll import mll as mll_fn
 from rpagp_torch.models import exact_gp
 from rpagp_torch.models.exact_gp import ModelSpec
-from rpagp_torch.ops import cuda_chol, cuda_interp
+from rpagp_torch.ops import cuda_chol, cuda_gram, cuda_interp
 from rpagp_torch.ops.kernels import KernelSpec
 from rpagp_torch.utils import profiling
 from rpagp_torch.utils.config import TrainConfig
@@ -273,12 +273,18 @@ def test_the_exact_branch_emits_its_spans_nested(tmp_path):
         assert n in {name for name, _ in profiling.SPANS}
         assert count(n) == EXACT_STEPS, n
     assert count("rpagp.op.chol_linv") == 2 * EXACT_STEPS
+    # the Gram's forward under rpagp.exact.gram, its backward under the
+    # trainer's
+    assert count("rpagp.op.dense_gram") == 2 * EXACT_STEPS
     for e in ev:
         if e["name"] in EXACT_SPANS:
             assert _inside(e, "rpagp.train.loss", ev), e["name"]
             assert _inside(e, "rpagp.train.step", ev), e["name"]
         if e["name"] == "rpagp.op.chol_linv":
             assert _inside(e, "rpagp.exact.factor", ev)
+        if e["name"] == "rpagp.op.dense_gram":
+            assert (_inside(e, "rpagp.exact.gram", ev)
+                    or _inside(e, "rpagp.train.backward", ev))
 
 
 @pytest.mark.parametrize("device", ["cpu", pytest.param(
@@ -294,10 +300,36 @@ def test_k1_records_are_its_launches(device):
     before = cuda_chol.launches["chol_linv"]
     with profile(activities=[ProfilerActivity.CPU]):
         _train_exact(device)
-    recs = profiling.take_records()
+    recs = [r for r in profiling.take_records()
+            if r[0] == "rpagp.op.chol_linv"]
     assert recs == [("rpagp.op.chol_linv", 1, 512)] * (2 * EXACT_STEPS)
     if device == "cuda":
         assert cuda_chol.launches["chol_linv"] - before == len(recs)
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param(
+    "cuda", marks=pytest.mark.cuda)])
+def test_dense_gram_records_one_entry_each_way(device):
+    """The dense step's Gram records (J, n, m, direction) once forward and
+    once backward a step, K(x, x) at the step's n; on the card each record
+    is one launch of K6 or K7."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the records against K6 / K7's "
+                    "launches")
+    profiling.take_records()
+    profiling.take_counts()
+    before = dict(cuda_gram.launches)
+    with profile(activities=[ProfilerActivity.CPU]):
+        _train_exact(device)
+    recs = [r for r in profiling.take_records()
+            if r[0] == "rpagp.op.dense_gram"]
+    assert recs == [("rpagp.op.dense_gram", J, EXACT_N, EXACT_N, "fwd"),
+                    ("rpagp.op.dense_gram", J, EXACT_N, EXACT_N, "bwd")
+                    ] * EXACT_STEPS
+    if device == "cuda":
+        for k, d in (("dense_gram", "fwd"), ("dense_gram_bwd", "bwd")):
+            assert cuda_gram.launches[k] - before[k] == sum(
+                r[4] == d for r in recs)
 
 
 def test_no_profiler_records_nothing_on_the_exact_branch(monkeypatch):
