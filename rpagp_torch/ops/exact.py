@@ -3,11 +3,14 @@ posterior (port of rpagp/ops/exact.py).
 
 The factor is block_chol.blocked_cholesky: above its 512 block, GEMMs
 around K1 on each diagonal leaf (ops/cuda_chol.py); at or below it, the
-builtin Cholesky, as in the JAX package. Gradients are plain autograd
-through the factor, with K1's closed-form VJP on the leaves. The MLL's
-factor and its solve and logdet sit in the `rpagp.exact.factor` and
-`rpagp.exact.solve` spans (exact_gp.exact_mll's Gram in
-`rpagp.exact.gram`).
+builtin Cholesky, as in the JAX package. The MLL records no autograd
+graph through the factor: its gradient is the closed form
+d mll / d Khat = 1/2 (alpha alpha^T - Khat^{-1}), d mll / d y = -alpha,
+with Khat^{-1} from the forward's factor (blocked_cholesky itself stays
+differentiable for its other callers). The MLL's factor, its solve and
+logdet, and its backward sit in the `rpagp.exact.factor`,
+`rpagp.exact.solve` and `rpagp.exact.backward` spans
+(exact_gp.exact_mll's Gram in `rpagp.exact.gram`).
 """
 
 from __future__ import annotations
@@ -31,17 +34,41 @@ def add_jitter(K, noise, jitter: float = 1e-6):
     return K + (noise + jitter) * _eye(K.shape[-1], K)
 
 
+class _CholeskyMLL(torch.autograd.Function):
+    """mll(Khat, y) with its closed-form VJP from the forward's factor L
+    and alpha = Khat^{-1} y. An indefinite Khat gives a NaN factor, so a
+    NaN loss and NaN gradients, with no host read."""
+
+    @staticmethod
+    def forward(ctx, Khat, y):
+        with span("rpagp.exact.factor"):
+            L = blocked_cholesky(Khat)
+        with span("rpagp.exact.solve"):
+            alpha = torch.cholesky_solve(y[:, None], L)[:, 0]
+            inv_quad = y @ alpha
+            logdet = 2.0 * torch.sum(torch.log(torch.diagonal(L)))
+        ctx.save_for_backward(L, alpha)
+        return -0.5 * (inv_quad + logdet + y.shape[0] * LOG_2PI)
+
+    @staticmethod
+    def backward(ctx, g):
+        L, alpha = ctx.saved_tensors
+        with span("rpagp.exact.backward"):
+            # Khat^{-1} = L^{-T} L^{-1} by two triangular solves: a float32
+            # GEMM L^{-T} L^{-1} sums its diagonal too coarsely for the
+            # noise's gradient, alpha^T alpha - tr(Khat^{-1}), which cancels
+            Kinv = torch.linalg.solve_triangular(
+                L.mT, torch.linalg.solve_triangular(
+                    L, _eye(L.shape[0], L), upper=False), upper=True)
+            grad_K = Kinv.addr_(alpha, alpha, alpha=-1.0).mul_(-0.5 * g)
+            return grad_K, -g * alpha
+
+
 def cholesky_mll(K, y_centered, noise, jitter: float = 1e-6):
     """Exact marginal log-likelihood (the total, not per point):
-    -1/2 [y^T (K + s^2 I)^{-1} y + logdet(K + s^2 I) + n log 2 pi]."""
-    n = y_centered.shape[0]
-    with span("rpagp.exact.factor"):
-        L = blocked_cholesky(add_jitter(K, noise, jitter))
-    with span("rpagp.exact.solve"):
-        alpha = torch.cholesky_solve(y_centered[:, None], L)[:, 0]
-        inv_quad = y_centered @ alpha
-        logdet = 2.0 * torch.sum(torch.log(torch.diagonal(L)))
-    return -0.5 * (inv_quad + logdet + n * LOG_2PI)
+    -1/2 [y^T (K + s^2 I)^{-1} y + logdet(K + s^2 I) + n log 2 pi].
+    The noise's gradient flows through add_jitter."""
+    return _CholeskyMLL.apply(add_jitter(K, noise, jitter), y_centered)
 
 
 def cholesky_posterior_cache(K_train, y_centered, noise,

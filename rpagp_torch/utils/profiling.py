@@ -68,6 +68,7 @@ SPANS = (
     ("rpagp.exact.gram", "dense step"),
     ("rpagp.exact.factor", "dense step"),
     ("rpagp.exact.solve", "dense step"),
+    ("rpagp.exact.backward", "dense step"),
     ("rpagp.op.chol_linv", "kernels"),
     ("rpagp.op.dense_gram", "kernels"),
 )

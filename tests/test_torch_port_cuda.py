@@ -869,8 +869,8 @@ def test_dense_mll_matches_float64_cpu(cuda_device, family):
     """The dense Cholesky MLL (exact_gp.exact_mll) at n = 1000 on the card,
     its factor padded to 1024 and run as two K1 leaves, against the same
     computation in float64 on the CPU: value rel <= 1e-5, gradient relerr
-    <= 1e-4. K1's VJP assumes a symmetric input and the factor reads only
-    the lower triangle; the Gram of the sqdist identity comes from a GEMM
+    <= 1e-4. The MLL's closed-form gradient assumes a symmetric input and
+    the factor reads only the lower triangle; the Gram of the sqdist identity comes from a GEMM
     that need not return an exactly symmetric cross term, so the test
     records whether it did and holds the gradient to the bar either way
     (the gradient wrt the params sums K's entries in symmetric pairs)."""

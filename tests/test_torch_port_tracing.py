@@ -273,6 +273,8 @@ def test_the_exact_branch_emits_its_spans_nested(tmp_path):
         assert n in {name for name, _ in profiling.SPANS}
         assert count(n) == EXACT_STEPS, n
     assert count("rpagp.op.chol_linv") == 2 * EXACT_STEPS
+    # the MLL's closed-form backward, once a step, in the trainer's
+    assert count("rpagp.exact.backward") == EXACT_STEPS
     # the Gram's forward under rpagp.exact.gram, its backward under the
     # trainer's
     assert count("rpagp.op.dense_gram") == 2 * EXACT_STEPS
@@ -282,6 +284,8 @@ def test_the_exact_branch_emits_its_spans_nested(tmp_path):
             assert _inside(e, "rpagp.train.step", ev), e["name"]
         if e["name"] == "rpagp.op.chol_linv":
             assert _inside(e, "rpagp.exact.factor", ev)
+        if e["name"] == "rpagp.exact.backward":
+            assert _inside(e, "rpagp.train.backward", ev)
         if e["name"] == "rpagp.op.dense_gram":
             assert (_inside(e, "rpagp.exact.gram", ev)
                     or _inside(e, "rpagp.train.backward", ev))
