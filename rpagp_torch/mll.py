@@ -2,9 +2,12 @@
 dispatch (port of rpagp/mll.py): the dense Cholesky branch (n <=
 max_cholesky_size without SKI), the exact grid-solver branch (every
 product SKI spec, and degree-1 SKI within its budget) and the BBMM
-branch (CG + SLQ, LOVE)."""
+branch (CG + SLQ, LOVE). `observe_routes` reports the branch each
+`mll` call took."""
 
 from __future__ import annotations
+
+import contextlib
 
 from .models import exact_gp
 from .models.exact_gp import ModelSpec
@@ -18,12 +21,30 @@ def _solver(spec: ModelSpec, n: int) -> str:
     return "grid" if grid_solve.use_grid_solver(spec, n) else "iterative"
 
 
+_observers: list = []  # the route lists of the open observe_routes blocks
+
+
+@contextlib.contextmanager
+def observe_routes():
+    """Yields a list to which every `mll` call made inside the block
+    appends its route, _solver's "exact", "grid" or "iterative" (the
+    trainer watches its first step with it: train._graphable)."""
+    seen: list = []
+    _observers.append(seen)
+    try:
+        yield seen
+    finally:
+        _observers.pop()  # blocks nest: this one is the last opened
+
+
 def mll(spec: ModelSpec, params, buffers, x, y, generator=None):
     """Marginal log-likelihood (total, not per point). The grid branch needs
     buffers from exact_gp.prepare_buffers on this split; the BBMM branch
     draws its probes from `generator` (a torch.Generator on x's device;
     seed 0 when None)."""
     solver = _solver(spec, x.shape[0])
+    for seen in _observers:
+        seen.append(solver)
     if solver == "exact":
         return exact_gp.exact_mll(spec, params, buffers, x, y)
     if solver == "grid":

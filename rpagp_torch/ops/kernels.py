@@ -11,6 +11,7 @@ A kernel is a static `KernelSpec` plus dicts of tensors: params
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Tuple
 
@@ -170,13 +171,18 @@ def _component_groups(spec: KernelSpec):
 
 
 def _take(t, idx):
-    """t[idx] along dim 0. A contiguous run of indices (every group of a
-    kernel with one base and one degree) is a slice: indexing a CUDA
-    tensor with a Python list copies the list to the device and waits."""
-    lo = idx[0]
-    if tuple(idx) == tuple(range(lo, lo + len(idx))):
-        return t[lo:lo + len(idx)]
-    return t[torch.tensor(idx, device=t.device)]
+    """t[idx] along dim 0, as slices of idx's runs of consecutive indices
+    (one run, one slice: every group of a kernel with one base and one
+    degree): indexing a CUDA tensor with a Python list copies the list to
+    the device and waits, which no CUDA graph can hold."""
+    runs = []
+    for i in idx:
+        if runs and runs[-1][1] == i:
+            runs[-1][1] = i + 1
+        else:
+            runs.append([i, i + 1])
+    parts = [t[a:b] for a, b in runs]
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
 def _projected_coords(spec: KernelSpec, params, buffers, x):
@@ -219,11 +225,11 @@ def _materialized_projection_gram(spec: KernelSpec, u1, u2, w):
         dk = d * spec.sub_dim  # 1-D factors per component
         t = (_take(u1, flat_idx)[:, :, None]
              - _take(u2, flat_idx)[:, None, :])  # (g*dk, n, m)
-        kv = _k1d(base, t)
-        if dk > 1:
-            kv = torch.prod(kv.reshape(len(comp_idx), dk, n, m), dim=1)
-        else:
-            kv = kv.reshape(len(comp_idx), n, m)
+        # the product of a component's dk factors by dk - 1 products:
+        # torch.prod's backward counts the zeros on the host
+        kv = functools.reduce(
+            torch.mul, _k1d(base, t).reshape(len(comp_idx), dk, n,
+                                              m).unbind(1))
         out = out + torch.tensordot(_take(w, comp_idx), kv, dims=1)
     return out
 

@@ -11,6 +11,14 @@ loss, as the JAX package's does. Each step runs in an `rpagp.train.step`
 span holding its refresh, loss, backward and update spans, and each host
 read in an `rpagp.sync` span (utils/profiling.py: open only while a
 profiler records).
+
+Where its first step shows a loss that a CUDA graph can hold
+(`_graphable`: every MLL call took the dense Cholesky route, on the card,
+with no probe generator and no refresh of the loss's arguments),
+train_to_convergence captures the loss and its backward once at step 1
+and replays that graph at step 1 and every later step, in an
+`rpagp.train.replay` span (`_GraphedStep`); the optimizer, the
+parameters' copies, grad_hook and the loss reads stay eager.
 """
 
 from __future__ import annotations
@@ -25,9 +33,10 @@ from typing import Callable
 import numpy as np
 import torch
 
+from .mll import observe_routes
 from .utils.checkpoint import Checkpointer, load_checkpoint
 from .utils.config import TrainConfig, make_optimizer
-from .utils.profiling import span
+from .utils.profiling import Captured, span
 
 _EMA_DECAY = 0.8  # the stochastic tracker's EMA (rpagp/train.py:199)
 
@@ -45,6 +54,9 @@ class TrainResult:
     # calls of args_refresh's function (the BBMM path's cached-
     # preconditioner rebuilds)
     refreshes: int = 0
+    # steps that replayed the captured CUDA graph of the loss and its
+    # backward (train_to_convergence on the dense Cholesky route)
+    replays: int = 0
 
 
 @dataclasses.dataclass
@@ -111,6 +123,82 @@ def _warn_if_frozen(params_prev, params):
         )
 
 
+def _graphable(routes, leaves, generator, args_refresh) -> bool:
+    """Whether the loss and its backward can be captured once as a CUDA
+    graph and replayed: the first step's MLL calls (mll.observe_routes)
+    all took the dense Cholesky route, whose shapes are fixed and which
+    reads nothing back to the host, the parameters are on the card, and
+    nothing changes between steps but the parameters (no probe generator,
+    no args_refresh)."""
+    return (bool(routes) and all(r == "exact" for r in routes)
+            and all(t.is_cuda for t in leaves)
+            and generator is None and args_refresh is None)
+
+
+# per CUDA device: [the stream graphs are captured on, the last graph
+# captured there]. That graph outlives its call until the next capture on
+# the device, which shares its memory pool: a pool of its own would
+# allocate the step's memory anew every call (and free it only at
+# torch.cuda.empty_cache)
+_capture_state: dict = {}
+
+
+class _GraphedStep:
+    """The loss and its backward, captured once as a CUDA graph on the
+    call's own parameter tensors (`leaves`, whose values the optimizer
+    changes in place) and the loss's fixed arguments. The capture starts
+    with no gradients, so the graph writes each leaf's .grad, which every
+    replay overwrites in place and the eager grad_hook and optimizer read.
+    The kernels' op records and launch counts of the capture are set
+    aside and emitted at each replay (utils/profiling.Captured)."""
+
+    def __init__(self, loss_fn, params, args):
+        from .ops import cuda_chol, cuda_gram, cuda_interp
+
+        self.leaves = _leaves(params)
+        for t in self.leaves:
+            t.grad = None
+        device = self.leaves[0].device
+        state = _capture_state.setdefault(
+            device, [torch.cuda.Stream(device), None])
+        stream, last = state
+        self.graph = torch.cuda.CUDAGraph()
+        stream.wait_stream(torch.cuda.current_stream(device))
+        # cuBLAS keeps a workspace a stream (64 MiB on the H100). Dropped
+        # before the capture, the eager stream's does not sit beside the
+        # capture stream's, which the capture allocates in the graph's
+        # pool; dropped after it, that one holds no memory of the pool past
+        # the graph (as PyTorch's own graph trees do around a capture)
+        torch._C._cuda_clearCublasWorkspaces()
+        with Captured([cuda_chol.launches, cuda_gram.launches,
+                       cuda_interp.launches]) as self.work, \
+                torch.cuda.stream(stream):
+            self.graph.capture_begin(None if last is None else last.pool())
+            try:
+                with span("rpagp.train.loss"):
+                    self.loss = loss_fn(params, *args)
+                with span("rpagp.train.backward"):
+                    self.loss.backward()
+            finally:
+                self.graph.capture_end()
+        torch._C._cuda_clearCublasWorkspaces()
+        torch.cuda.current_stream(device).wait_stream(stream)
+        state[1] = self.graph
+
+    def replay(self):
+        """Run the step's loss and backward; returns a copy of the loss."""
+        self.graph.replay()
+        self.work.replayed()
+        return self.loss.detach().clone()
+
+    def release(self):
+        """Free the loss and the gradients the graph wrote, which returns
+        their memory to the graph's pool for the next capture."""
+        for t in self.leaves:
+            t.grad = None
+        self.graph = self.loss = None
+
+
 def train_to_convergence(
     loss_fn: Callable,
     params,
@@ -145,6 +233,12 @@ def train_to_convergence(
     and a `[warn] training stalled at step 0` line goes to stderr if none
     did (_warn_if_frozen).
 
+    Step 0 runs eagerly. Where it shows the step graphable (`_graphable`),
+    step 1 captures the loss and its backward as a CUDA graph, and step 1
+    and every later step replay it (`TrainResult.replays`). When the call
+    returns, the loss and gradients the graph wrote are freed; the graph
+    waits for the next capture on the device, which takes over its memory.
+
     grad_hook: optional fn(leaves), run after each backward and before the
     optimizer step (the parallel path's gradient assembly,
     parallel/sharding.make_distributed_loss)."""
@@ -161,7 +255,8 @@ def train_to_convergence(
     t0 = time.perf_counter()
     converged = diverged = False
     pending = []  # (device loss, params it was evaluated at)
-    refreshes = 0
+    refreshes = replays = 0
+    graphed = routes = None
     for i in range(max_iters):
         with span("rpagp.train.step"):
             if args_refresh is not None and i > 0 \
@@ -170,11 +265,25 @@ def train_to_convergence(
                     loss_args = args_refresh[1](params, loss_args)
                 refreshes += 1
             pprev = _tree_map(lambda t: t.detach().clone(), params)
-            opt.zero_grad(set_to_none=True)
-            with span("rpagp.train.loss"):
-                loss = loss_fn(params, *loss_args, *extra)
-            with span("rpagp.train.backward"):
-                loss.backward()
+            if i == 1 and _graphable(routes, _leaves(params), generator,
+                                     args_refresh):
+                # step 0's autograd graph holds the leaves' gradient
+                # accumulators on the eager stream: drop it, or the
+                # captured backward waits on that stream and fails
+                loss = None
+                graphed = _GraphedStep(loss_fn, params, loss_args)
+            if graphed is None:
+                opt.zero_grad(set_to_none=True)
+                with span("rpagp.train.loss"), observe_routes() as routes:
+                    loss = loss_fn(params, *loss_args, *extra)
+                with span("rpagp.train.backward"):
+                    loss.backward()
+                    if grad_hook is not None:
+                        grad_hook(_leaves(params))
+            else:
+                with span("rpagp.train.replay"):
+                    loss = graphed.replay()
+                replays += 1
                 if grad_hook is not None:
                     grad_hook(_leaves(params))
             with span("rpagp.train.update"):
@@ -198,12 +307,15 @@ def train_to_convergence(
             pending.clear()
             if converged or diverged:
                 break
+    if graphed is not None:
+        graphed.release()
     best = _tree_map(lambda t: t.detach(), tracker.best_params)
     return TrainResult(
         params=best, losses=losses, iterations=len(losses),
         converged=converged, wall_time_s=time.perf_counter() - t0,
         best_loss=(tracker.best if tracker.best != float("inf")
-                   else float("nan")), refreshes=refreshes)
+                   else float("nan")), refreshes=refreshes,
+        replays=replays)
 
 
 _ADAM_SLOTS = ("exp_avg", "exp_avg_sq", "step")

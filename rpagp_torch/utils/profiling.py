@@ -24,6 +24,13 @@
   * `SPANS`: every span name with its layer;
   * `take_records()` / `take_counts()`: the op records and the counts
     since the last take, cleared (`trace` clears both on exit);
+  * `Captured(counters)`: entered around the capture of a CUDA graph,
+    where nothing runs, it sets aside the op records the capture makes
+    (with or without a profiler) and its increments of the kernels'
+    launch counters (`counters`: the dicts of the kernel modules);
+    `replayed()`, at each replay of the graph, adds the increments back
+    and, only while a profiler records, the records, so that counters and
+    records read the work that ran;
   * `PhaseTimer`: named-phase wall-clock totals, each phase ending in a
     synchronize of the device it names;
   * `annotate(name)`: `span` as a decorator.
@@ -54,6 +61,7 @@ SPANS = (
     ("rpagp.train.loss", "trainer"),
     ("rpagp.train.backward", "trainer"),
     ("rpagp.train.update", "trainer"),
+    ("rpagp.train.replay", "trainer"),
     ("rpagp.sync", "host"),
     ("rpagp.bbmm.cg", "CG"),
     ("rpagp.bbmm.operator", "SKI + BBMM step"),
@@ -74,10 +82,11 @@ SPANS = (
 )
 
 # the spans whose entries are counted while a profiler records
-COUNTED = ("rpagp.train.step", "rpagp.sync")
+COUNTED = ("rpagp.train.step", "rpagp.train.replay", "rpagp.sync")
 
 _records: list = []
 _counts = dict.fromkeys(COUNTED, 0)
+_capturing = False  # inside a Captured block: records are kept anyway
 
 _NO_SPAN = contextlib.nullcontext()  # what `span` returns with no profiler
 
@@ -86,12 +95,51 @@ def span(name: str, record: tuple | None = None):
     """A context manager naming a region of the program (module
     docstring). Off: one flag read, the shared no-op."""
     if not _autograd_profiler._is_profiler_enabled:
+        if _capturing and record is not None:
+            _records.append((name, *record))
         return _NO_SPAN
     if record is not None:
         _records.append((name, *record))
     elif name in _counts:
         _counts[name] += 1
     return torch.profiler.record_function(name)
+
+
+class Captured:
+    """The op records and launch counts of a captured CUDA graph (module
+    docstring). counters: dicts of launch counts by entry point, which the
+    block's launches increment."""
+
+    def __init__(self, counters):
+        self.counters = counters
+        self.records: list = []
+        self.launches: list = []
+
+    def __enter__(self):
+        global _capturing
+        self._start = len(_records)
+        self._before = [dict(c) for c in self.counters]
+        _capturing = True
+        return self
+
+    def __exit__(self, *exc):
+        global _capturing
+        _capturing = False
+        self.records = _records[self._start:]
+        del _records[self._start:]
+        self.launches = [{k: v - before.get(k, 0) for k, v in c.items()}
+                         for c, before in zip(self.counters, self._before)]
+        for c, before in zip(self.counters, self._before):
+            c.update(before)
+        return False
+
+    def replayed(self):
+        """Emit what one replay of the graph ran."""
+        for c, delta in zip(self.counters, self.launches):
+            for k, v in delta.items():
+                c[k] += v
+        if _autograd_profiler._is_profiler_enabled:
+            _records.extend(self.records)
 
 
 def take_records() -> list:

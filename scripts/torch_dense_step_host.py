@@ -13,16 +13,26 @@ torch.profiler: the device's kernels and copies a step (the spans' ranges
 left out) and their busy ms. Where wall equals issue the host, not the
 card, sets the step. Prints the card's name and power limit, then one JSON
 line. Run it in several processes, or under `taskset`, to compare hosts.
+
+The profiled eager steps also give the device ms a step of each `rpagp.*`
+span (gpbench/spans.py), which a trainer call cannot: there the graph's
+replays hold every kernel of the loss and its backward. Last, the
+trainer's own calls of 100 steps (`train_to_convergence`, which replays
+the step as a CUDA graph on this route): wall ms a step, the replays, and
+under the profiler the host's launch calls a step (kernel and graph
+launches, copies and sets) and the device's busy ms a step.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -41,8 +51,10 @@ def main(argv=None) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from gpbench import spans
     from rpagp_torch.mll import mll
     from rpagp_torch.models import exact_gp
+    from rpagp_torch.train import train_to_convergence
     from rpagp_torch.utils import datasets
     from rpagp_torch.utils.config import load_spec
 
@@ -106,6 +118,34 @@ def main(argv=None) -> int:
            if e.device_type == torch.autograd.DeviceType.CUDA
            and not e.name.startswith("rpagp.")]
     launches = len(ops) / 3
+    by_span = spans.reduce(_chrome_events(prof))["spans"]
+
+    def call():
+        return train_to_convergence(
+            lambda p, b, xx, yy: -mll(exp.model, p, b, xx, yy) / n,
+            params, dataclasses.replace(exp.train, max_iters=100,
+                                        patience=100),
+            loss_args=(buffers, x, y), sync_every=8)
+
+    call()
+    calls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        res = call()
+        torch.cuda.synchronize()
+        calls.append((time.perf_counter() - t0) / res.iterations * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res = call()
+        torch.cuda.synchronize()
+    host = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CPU
+            and e.name.startswith("cuda")
+            and ("Launch" in e.name or "Memcpy" in e.name
+                 or "Memset" in e.name)]
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not e.name.startswith("rpagp.")]
     issue = statistics.median(r["issue_ms"] for r in reps)
     print(json.dumps({
         "cpus": len(os.sched_getaffinity(0)),
@@ -113,8 +153,30 @@ def main(argv=None) -> int:
         "busy_ms": sum(e.device_time for e in ops) / 3 / 1e3,
         "wall_ms": statistics.median(r["wall_ms"] for r in reps),
         "issue_ms": issue, "issue_us_a_launch": 1e3 * issue / launches,
-        "reps": reps}), flush=True)
+        "device_ms_by_span": {k: 1e3 * v["device_s"] / 3
+                              for k, v in sorted(by_span.items())},
+        "reps": reps,
+        "trainer_call": {
+            "wall_ms_a_step": calls, "replays": res.replays,
+            "host_launch_calls_a_step": len(host) / res.iterations,
+            "busy_ms_a_step": sum(e.device_time for e in dev)
+            / res.iterations / 1e3}}), flush=True)
     return 0
+
+
+def _chrome_events(prof):
+    """The profiler's Chrome-trace events (written to a temporary file
+    and read back)."""
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)
+    finally:
+        os.remove(path)
+    return events.get("traceEvents", []) if isinstance(events, dict) \
+        else events
 
 
 if __name__ == "__main__":

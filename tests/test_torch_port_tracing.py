@@ -139,7 +139,9 @@ def test_one_sync_span_for_each_host_read(profiled):
     _, ev, _, counts = profiled
     # one eigh a step, two chunk reads (steps 7 and 8), the stall check
     assert sum(e["name"] == "rpagp.sync" for e in ev) == STEPS + 2 + 1
-    assert counts == {"rpagp.train.step": STEPS, "rpagp.sync": STEPS + 2 + 1}
+    # a BBMM call draws probes every step: it replays no graph
+    assert counts == {"rpagp.train.step": STEPS, "rpagp.train.replay": 0,
+                      "rpagp.sync": STEPS + 2 + 1}
 
 
 def test_records_hold_every_k2_and_k3_call(profiled, monkeypatch):
